@@ -1,0 +1,13 @@
+"""Qwen2-1.5B — dense, GQA kv=2, QKV bias.  [arXiv:2407.10671]"""
+from repro_torch.models.config import ModelConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="qwen2-1.5b", family="dense",
+        n_layers=28, d_model=1536, n_heads=12, n_kv_heads=2,
+        d_ff=8960, vocab_size=151_936,
+        qkv_bias=True, rope_theta=1_000_000.0,
+        tie_embeddings=True,
+        source="[arXiv:2407.10671]",
+        max_seq_len=32_768)

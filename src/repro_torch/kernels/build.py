@@ -1,0 +1,91 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exports plain C launch functions (no PyTorch
+headers, so a build takes seconds); ``csrc/*.cuh`` are shared device
+helpers.  It is compiled for Hopper
+(``sm_90a``) at first use into ``build/repro_torch_kernels/`` at the
+repository root, under a name that hashes the source and the flags, so
+an edited source or flag rebuilds and an unchanged one is reused.
+``build()`` starts one ``nvcc`` per missing library, all at once.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+from typing import Dict, Iterable
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
+    "repro_torch_kernels"
+KERNELS = ("paged_attention", "paged_prefill")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
+
+
+def library_path(name: str) -> pathlib.Path:
+    """Where the library of one kernel is built: named by a hash of its
+    source, the shared headers and the flags."""
+    digest = hashlib.sha256("\0".join(NVCC_FLAGS).encode())
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(path.read_bytes())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
+    """Compile every named kernel whose library is missing, one ``nvcc``
+    process each, started together.  Returns each compiled kernel's
+    ``ptxas`` report (registers, shared memory, spills); raises with the
+    compiler's output if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp, out)
+    reports, failed = {}, {}
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode == 0:
+            os.replace(tmp, out)
+            reports[name] = log
+        else:
+            failed[name] = log
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"--- {n}\n{log}" for n, log in failed.items()))
+    return reports
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of one kernel, built first if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            _libs[name] = lib
+        return lib

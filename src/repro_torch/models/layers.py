@@ -1,0 +1,119 @@
+"""Building blocks of the paged serving path, the PyTorch counterpart of
+``repro/models/layers.py``: norms, RoPE, GQA projections and the
+gated MLP.
+
+Plain functions on tensors; parameters arrive as dicts built from
+``repro_torch.models.params.Spec`` trees in ``repro``'s layouts
+(``wq`` is ``(d, H, D)``, ``wo`` is ``(H, D, d)``), so weights carry
+over between the packages unchanged.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.params import Spec
+
+
+# ---------------------------------------------------------------- norms
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm computed in float32; weights are zero-initialized and
+    scale by ``1 + scale``."""
+    dtype = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    out = x * torch.rsqrt(var + eps)
+    return (out * (1.0 + scale.float())).to(dtype)
+
+
+def norm_spec(d: int) -> Spec:
+    return Spec((d,), (None,), "zeros")
+
+
+# ---------------------------------------------------------------- RoPE
+def rope_freqs(positions: torch.Tensor, head_dim: int, theta: float):
+    """(sin, cos) of shape positions.shape + (head_dim//2,)."""
+    half = head_dim // 2
+    exps = torch.arange(half, dtype=torch.float32,
+                        device=positions.device) / half
+    inv = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                       device=positions.device), exps)
+    ang = positions.float()[..., None] * inv
+    return torch.sin(ang), torch.cos(ang)
+
+
+def apply_rope(x: torch.Tensor, sin: torch.Tensor,
+               cos: torch.Tensor) -> torch.Tensor:
+    """x: (..., S, H, D); sin/cos: (..., S, D//2) broadcast over heads.
+    Rotates split halves of the head, not interleaved pairs."""
+    dtype = x.dtype
+    x = x.float()
+    x1, x2 = x.chunk(2, dim=-1)
+    sin = sin[..., None, :]
+    cos = cos[..., None, :]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(dtype)
+
+
+# ---------------------------------------------------------------- attention
+def attn_specs(cfg) -> dict:
+    d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    em = "embed"
+    specs = {
+        "wq": Spec((d, h, hd), (em, "heads", None), "scaled", 0),
+        "wk": Spec((d, hkv, hd), (em, "kv_heads", None), "scaled", 0),
+        "wv": Spec((d, hkv, hd), (em, "kv_heads", None), "scaled", 0),
+        "wo": Spec((h, hd, d), ("heads", None, em), "scaled", 0),
+    }
+    if cfg.qkv_bias:
+        specs["bq"] = Spec((h, hd), ("heads", None), "zeros")
+        specs["bk"] = Spec((hkv, hd), ("kv_heads", None), "zeros")
+        specs["bv"] = Spec((hkv, hd), ("kv_heads", None), "zeros")
+    if cfg.qk_norm:
+        specs["q_norm"] = norm_spec(hd)
+        specs["k_norm"] = norm_spec(hd)
+    return specs
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, d) times w: (d, H, D) -> (B, S, H, D)."""
+    d, h, hd = w.shape
+    return (x @ w.reshape(d, h * hd)).unflatten(-1, (h, hd))
+
+
+def attn_qkv(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor):
+    """Project to roped (q, k, v).  x: (B, S, d); positions: (B, S).
+    Bias first, then ``qk_norm``, then RoPE."""
+    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    sin, cos = rope_freqs(positions, cfg.head_dim, cfg.rope_theta)
+    return apply_rope(q, sin, cos), apply_rope(k, sin, cos), v
+
+
+def attn_out(p: dict, o: torch.Tensor) -> torch.Tensor:
+    """o: (B, S, H, D) -> (B, S, d)."""
+    h, hd, d = p["wo"].shape
+    return o.flatten(-2) @ p["wo"].reshape(h * hd, d)
+
+
+# ---------------------------------------------------------------- MLP
+def mlp_specs(d: int, f: int) -> dict:
+    return {
+        "w_gate": Spec((d, f), ("embed", "mlp"), "scaled", 0),
+        "w_in": Spec((d, f), ("embed", "mlp"), "scaled", 0),
+        "w_out": Spec((f, d), ("mlp", "embed"), "scaled", 0),
+    }
+
+
+def mlp(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    gate = x @ p["w_gate"]
+    # jax.nn.gelu defaults to the tanh approximation
+    g = F.silu(gate) if act == "silu" else F.gelu(gate, approximate="tanh")
+    return (g * (x @ p["w_in"])) @ p["w_out"]
