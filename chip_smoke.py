@@ -9,10 +9,11 @@ CUDA toolkit:
 Phases, each printing one JSON line:
 
 1. device   the card's name and power limit (nvidia-smi);
-2. build    compile every CUDA kernel of the serving path from
+2. build    compile every CUDA kernel of the port from
             ``src/repro_torch/kernels/csrc`` (one nvcc each, in parallel);
 3. kernels  every kernel against its plain PyTorch version on the card,
-            over the JAX package's test cases and the full-width shapes;
+            over the JAX package's test cases and the full-width shapes
+            (gemma3-4b's D = 256 included);
 4. step     each full-width qwen3-0.6b step function (mixed_step,
             prefill_step, decode_batch) in float32 with the kernels and
             again with the plain versions: logits and pools must agree;
@@ -20,10 +21,21 @@ Phases, each printing one JSON line:
             in bfloat16, twice on fresh engines: every request finishes,
             no page leaks, the same tokens both times, and each kernel
             launched exactly 28 times per step that needs it;
-6. timing   each kernel, its plain version, the library call and the
+6. slot step  full-width gemma3-4b in float32: ``prefill`` of a
+            1500-token prompt and 4 ``decode_step``s, with the
+            ``flash_prefill`` kernel and with its plain version: logits
+            and caches must agree;
+7. slot serve  8 greedy requests (prompts 1100-3000 tokens, all longer
+            than the 1024 window) through ``SlotEngine`` at full width
+            in bfloat16, twice on fresh engines: every request finishes
+            with the same tokens both times, ``flash_prefill`` launched
+            exactly 34 times per prefill and the paged kernels never;
+8. timing   each kernel, its plain version, the library call and the
             least time the card could take, at the serving shapes;
-7. profile  host wall and device time of one full-width bf16
-            mixed_step, by kind of kernel (torch.profiler).
+9. profile  host wall and device time, by kind of kernel
+            (torch.profiler), of one full-width bf16 paged mixed_step,
+            one gemma3-4b slot prefill of 2048 tokens and one 4-slot
+            decode step.
 
 Then the line ``{"kernels": [...]}``, the nvidia-smi line, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -52,12 +64,19 @@ KERNEL_INFO = {
     "paged_prefill": dict(
         source="src/repro_torch/kernels/csrc/paged_prefill.cu",
         replaces="src/repro/kernels/paged_prefill.py:177"),
+    "flash_prefill": dict(
+        source="src/repro_torch/kernels/csrc/flash_prefill.cu",
+        replaces="src/repro/kernels/flash_prefill.py:125"),
 }
 # the serving configuration (ISSUE-style full-width run)
 SERVE_ECFG = dict(dtype="bfloat16", page_size=16, num_pages=1024,
                   max_batch=8, max_pages_per_seq=64, chunk_size=64,
                   max_prefills=2)
 N_REQUESTS, MAX_NEW, PROMPT_RANGE = 16, 32, (128, 768)
+# the slot serving configuration (gemma3-4b, full width)
+SLOT_ECFG = dict(max_slots=4, max_len=4096, dtype="bfloat16")
+SLOT_REQUESTS, SLOT_MAX_NEW, SLOT_PROMPTS = 8, 32, (1100, 3000)
+SLOT_STEP_PROMPT, SLOT_STEP_DECODES = 1500, 4
 # full-width f32 step: kernel logits vs plain logits, relative to the
 # logits' scale.  The two differ only in the order of the attention's
 # float32 sums (~1e-6 relative per call); 28 layers of residual updates
@@ -112,6 +131,17 @@ def prefill_case(torch, gen, b, h, hkv, d, page, s, nb, dtype, ctx=None,
             torch.as_tensor(chunk, device=dev).to(torch.int32))
 
 
+def flash_case(torch, gen, b, sq, sk, h, hkv, d, dtype, lengths=None):
+    dev = "cuda"
+    q = torch.randn(b, sq, h, d, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, sk, hkv, d, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, sk, hkv, d, generator=gen, device=dev).to(dtype)
+    if lengths is None:
+        lengths = torch.randint(sk // 2, sk + 1, (b,), generator=gen,
+                                device=dev)
+    return q, k, v, torch.as_tensor(lengths, device=dev).to(torch.int32)
+
+
 def check_kernels(torch, ops_mod):
     """Phase 3: every kernel against its plain version on the card."""
     from repro_torch.kernels import ref
@@ -121,11 +151,14 @@ def check_kernels(torch, ops_mod):
     gen.manual_seed(0)
     results = []
 
-    def compare(kernel, args, dtype, tol_idx, label, extra=None):
-        out = (ops_mod.paged_attention(*args) if kernel == "paged_attention"
-               else ops_mod.paged_prefill(*args))
-        plain = (ref.paged_attention_ref(*args) if kernel == "paged_attention"
-                 else ref.paged_prefill_ref(*args))
+    fns = {"paged_attention": (ops_mod.paged_attention,
+                               ref.paged_attention_ref),
+           "paged_prefill": (ops_mod.paged_prefill, ref.paged_prefill_ref),
+           "flash_prefill": (ops_mod.flash_attention, ref.flash_prefill_ref)}
+
+    def compare(kernel, args, dtype, tol_idx, label, extra=None, **kw):
+        out = fns[kernel][0](*args, **kw)
+        plain = fns[kernel][1](*args, **kw)
         torch.cuda.synchronize()
         tol = TOL[name[dtype]][tol_idx]
         err = (out.float() - plain.float()).abs().max().item()
@@ -173,20 +206,53 @@ def check_kernels(torch, ops_mod):
         compare("paged_prefill",
                 prefill_case(torch, gen, 2, 16, 8, 64, 16, 64, 52, dt,
                              num_pages=1025), dt, 1, "full width K2 S64 NB52")
+    # flash_prefill: tests/test_kernels.py:59 + the ragged case (:86)
+    for b, sq, sk, h, hkv, d, win, qoff, dt in [
+            (2, 128, 128, 8, 4, 64, 0, 0, f32),
+            (2, 128, 256, 4, 2, 64, 0, 128, f32),
+            (1, 256, 256, 4, 1, 128, 64, 0, f32),
+            (2, 64, 64, 4, 4, 32, 0, 0, f32),
+            (1, 192, 320, 6, 3, 64, 100, 128, f32),
+            (2, 128, 128, 8, 4, 64, 0, 0, bf16)]:
+        compare("flash_prefill",
+                flash_case(torch, gen, b, sq, sk, h, hkv, d, dt), dt, 1,
+                f"B{b} Sq{sq} Sk{sk} H{h} Hkv{hkv} D{d} window{win} "
+                f"q_offset{qoff}", window=win, q_offset=qoff)
+    compare("flash_prefill",
+            flash_case(torch, gen, 2, 100, 173, 4, 2, 64, f32, [173, 90]),
+            f32, 1, "ragged Sq100 Sk173 lengths 173/90")
+    # under a window, rows at qpos >= 20 + 16 - 1 of sequence 1 see no key
+    compare("flash_prefill",
+            flash_case(torch, gen, 2, 64, 64, 4, 2, 32, f32, [64, 20]), f32,
+            1, "rows without keys zero", window=16,
+            extra=lambda o: bool((o[1, 35:] == 0).all()
+                                 and (o[1, :35] != 0).any(-1).all()))
+    # gemma3-4b at full width: H 8, Hkv 4, D 256, the serving length
+    for dt in (f32, bf16):
+        for win in (1024, 0):
+            compare("flash_prefill",
+                    flash_case(torch, gen, 1, 2048, 2048, 8, 4, 256, dt,
+                               [2048]), dt, 1,
+                    f"gemma3-4b B1 S2048 D256 window{win}", window=win)
     # an empty batch launches nothing and counts nothing
+    from repro_torch.kernels import flash_prefill as fp
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import paged_prefill as pp
-    before = (pa.launches, pp.launches)
+    before = (pa.launches, pp.launches, fp.launches)
     out_d = ops_mod.paged_attention(
         *decode_case(torch, gen, 0, 4, 2, 64, 16, 4, f32, lengths=[]))
     out_p = ops_mod.paged_prefill(
         *prefill_case(torch, gen, 0, 4, 2, 32, 8, 16, 4, f32, [], []))
+    out_f = ops_mod.flash_attention(
+        *flash_case(torch, gen, 0, 16, 16, 4, 2, 32, f32, []))
     torch.cuda.synchronize()
-    for kernel, out in (("paged_attention", out_d), ("paged_prefill", out_p)):
+    for kernel, out in (("paged_attention", out_d), ("paged_prefill", out_p),
+                        ("flash_prefill", out_f)):
         results.append(dict(kernel=kernel, case="empty batch",
                             dtype="float32", max_abs_err=0.0, tol=0.0,
                             ok=out.shape[0] == 0
-                            and (pa.launches, pp.launches) == before))
+                            and (pa.launches, pp.launches,
+                                 fp.launches) == before))
     return results
 
 
@@ -345,6 +411,136 @@ def serve(torch, cfg, pa, pp):
     return runs[0]["launches"]
 
 
+# ------------------------------------------------------------ slot path
+def slot_step(torch, cfg, fp):
+    """Phase 6: full-width float32 ``prefill`` of one 1500-token prompt
+    and 4 ``decode_step``s (fixed tokens), once with the flash_prefill
+    kernel and once with its plain version, on the same weights."""
+    from repro_torch.models import model as M
+    dev, s, n_dec = "cuda", SLOT_STEP_PROMPT, SLOT_STEP_DECODES
+    cache_len = s + n_dec
+    params = M.init(cfg, seed=4, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (1, s + n_dec), generator=gen,
+                         device=dev).to(torch.int32)
+    outs = {}
+    for impl in ("kernel", "ref"):
+        fp.launches = 0
+        caches = M.init_cache(cfg, 1, cache_len, torch.float32, dev)
+        logits, caches = M.prefill(params, cfg, toks[:, :s], caches,
+                                   impl=impl)
+        steps = [logits.float()]
+        for i in range(n_dec):
+            pos = torch.tensor([s + i], dtype=torch.int32, device=dev)
+            logits, caches = M.decode_step(params, cfg, caches,
+                                           toks[:, s + i], pos)
+            steps.append(logits.float())
+        torch.cuda.synchronize()
+        outs[impl] = (torch.stack(steps), caches, fp.launches)
+    (lk, ck, nk), (lr, cr, nr) = outs["kernel"], outs["ref"]
+    scale = lr.abs().max().item()
+    err = (lk - lr).abs().max().item()
+    kv_err = max((a[n] - b[n]).abs().max().item() for a, b in zip(ck, cr)
+                 for n in ("k", "v"))
+    kv_scale = max(b[n].abs().max().item() for b in cr for n in ("k", "v"))
+    pos_equal = all(torch.equal(a["pos"], b["pos"])
+                    for a, b in zip(ck, cr) if "pos" in a)
+    ok = (bool(torch.isfinite(lk).all()) and err <= STEP_REL_TOL * scale
+          and kv_err <= STEP_REL_TOL * kv_scale and pos_equal
+          and nk == cfg.n_layers and nr == 0)
+    emit("slot_step", model=cfg.name, dtype="float32", prompt=s,
+         decode_steps=n_dec, logits_max_abs=scale, max_abs_err=err,
+         cache_max_abs_err=kv_err, cache_max_abs=kv_scale,
+         ring_pos_equal=pos_equal, flash_launches={"kernel": nk, "ref": nr},
+         rel_tol=STEP_REL_TOL, ok=ok)
+    if not ok:
+        raise AssertionError("full-width slot step: kernel and plain "
+                             "disagree")
+    del params, outs
+
+
+def slot_serve_once(torch, cfg, prompts, counters):
+    from repro_torch.engine import (Request, SamplingParams, SlotEngine,
+                                    SlotEngineConfig)
+    from repro_torch.engine.request import RequestState
+    eng = SlotEngine(cfg, SlotEngineConfig(**SLOT_ECFG), seed=0,
+                     device="cuda")
+    prefills = 0
+    prefill_into_slot = eng._prefill_into_slot
+
+    def counting_prefill(req, slot):
+        nonlocal prefills
+        prefills += 1
+        prefill_into_slot(req, slot)
+
+    eng._prefill_into_slot = counting_prefill
+    reqs = [Request(prompt_tokens=list(p),
+                    sampling=SamplingParams(max_new_tokens=SLOT_MAX_NEW))
+            for p in prompts]
+    torch.cuda.synchronize()
+    for mod in counters.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    steps, step_s = 0, {"prefill": 0.0, "decode": 0.0}
+    while eng.has_work:
+        before, t1 = prefills, time.perf_counter()
+        eng.step()              # ends in sampling's copy to the host
+        step_s["prefill" if prefills > before else "decode"] += \
+            time.perf_counter() - t1
+        steps += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: mod.launches for name, mod in counters.items()}
+    finished = sum(r.state == RequestState.FINISHED
+                   and len(r.output_tokens) == SLOT_MAX_NEW for r in reqs)
+    out = dict(tokens=[list(r.output_tokens) for r in reqs],
+               launches=launches, prefills=prefills, steps=steps,
+               step_s=step_s,
+               finished=finished, wall_s=wall, ttft=[r.ttft for r in reqs])
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def slot_serve(torch, cfg, counters):
+    """Phase 7: the full-width bf16 slot serve, twice."""
+    import numpy as np
+    rng = np.random.default_rng(1)
+    lens = rng.integers(SLOT_PROMPTS[0], SLOT_PROMPTS[1] + 1, SLOT_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in lens]
+    runs = [slot_serve_once(torch, cfg, prompts, counters) for _ in range(2)]
+    smi = nvidia_smi()
+    for i, run in enumerate(runs):
+        want = {name: cfg.n_layers * run["prefills"]
+                if name == "flash_prefill" else 0 for name in counters}
+        gen_tokens = sum(len(t) for t in run["tokens"])
+        ok = (run["finished"] == SLOT_REQUESTS
+              and run["prefills"] == SLOT_REQUESTS
+              and run["launches"] == want
+              and run["tokens"] == runs[0]["tokens"])
+        emit("slot_serve", run=i + 1, model=cfg.name, engine="SlotEngine",
+             config=SLOT_ECFG, requests=SLOT_REQUESTS,
+             prompt_tokens=int(lens.sum()), prompt_min=int(lens.min()),
+             prompt_max=int(lens.max()), generated_tokens=gen_tokens,
+             finished=run["finished"], prefills=run["prefills"],
+             steps=run["steps"], wall_s_by_step=run["step_s"],
+             launches=run["launches"],
+             expected_launches=want,
+             same_tokens_as_run_1=run["tokens"] == runs[0]["tokens"],
+             wall_s=run["wall_s"],
+             output_tokens_per_s=gen_tokens / run["wall_s"],
+             total_tokens_per_s=(gen_tokens + int(lens.sum()))
+             / run["wall_s"],
+             mean_ttft_s=float(np.mean(run["ttft"])), card=smi, ok=ok)
+        if not ok:
+            raise AssertionError(f"slot serve run {i + 1} failed its checks")
+    return runs[0]["launches"]
+
+
 # ------------------------------------------------------------ timing
 def time_ms(torch, fn, iters=50, warmup=5):
     for _ in range(warmup):
@@ -361,7 +557,7 @@ def time_ms(torch, fn, iters=50, warmup=5):
 
 
 def timing(torch, cfg, launches):
-    """Phase 6: kernel, plain and library times and the bound, at the
+    """Phase 8: kernel, plain and library times and the bound, at the
     serving shapes (bf16, H 16, Hkv 8, D 64, page 16, a pool of 1025
     pages, block tables 52 wide, 8 decode rows, 2 chunks of 64)."""
     import torch.nn.functional as F
@@ -435,38 +631,74 @@ def timing(torch, cfg, launches):
     return lines
 
 
+def flash_timing(torch, cfg, launches):
+    """flash_prefill at the slot path's prefill shapes: gemma3-4b's
+    heads (H 8, Hkv 4, D 256), one 2048-token prompt, bf16, with the SWA
+    layers' window and without (the DENSE layers).  The first row goes
+    into the ``kernels`` line, the second only into its timing line."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import layers
+    s, h, hkv, d = 2048, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    q, k, v, ln = flash_case(torch, gen, 1, s, s, h, hkv, d, torch.bfloat16,
+                             [s])
+    # SDPA's (B, H, S, D) layout, made before timing
+    qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    lines = []
+    for win in (cfg.sliding_window, 0):
+        out = ops.flash_attention(q, k, v, ln, window=win)
+        plain = ref.flash_prefill_ref(q, k, v, ln, window=win)
+        err = (out.float() - plain.float()).abs().max().item()
+        mask = layers.causal_mask(s, s, window=win, device="cuda")
+        if win:
+            def library():
+                return F.scaled_dot_product_attention(
+                    qs, ks, vs, attn_mask=mask, enable_gqa=True)
+        else:
+            def library():
+                return F.scaled_dot_product_attention(
+                    qs, ks, vs, is_causal=True, enable_gqa=True)
+        lib_err = (library().transpose(1, 2).float()
+                   - plain.float()).abs().max().item()
+        pairs = int(mask.sum())               # live (query, key) pairs
+        nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2 + ln.numel() * 4
+        flops = 4 * pairs * h * d
+        lines.append(kernel_line(
+            "flash_prefill", launches, err,
+            time_ms(torch, lambda: ops.flash_attention(q, k, v, ln,
+                                                       window=win)),
+            time_ms(torch, lambda: ref.flash_prefill_ref(q, k, v, ln,
+                                                         window=win)),
+            time_ms(torch, library), nbytes, flops, "bfloat16",
+            case=f"B1 S{s} H{h} Hkv{hkv} D{d} bf16 window {win}",
+            library_max_abs_err=lib_err))
+    return lines[:1]
+
+
 def kernel_line(name, launches, err, ms, plain_ms, library_ms, nbytes,
-                flops, dtype):
+                flops, dtype, **extra):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     line = dict(name=name, route="cuda", **KERNEL_INFO[name],
                 launches=launches[name], max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                library_ms=library_ms)
+                library_ms=library_ms, **extra)
     emit("timing", **line, bytes=nbytes, flops=flops)
     return line
 
 
-def profile_step(torch, cfg):
-    """Phase 7: where the time of one full-width bf16 mixed step goes.
-    Each step is ended by a synchronize, as the engine's sampling ends
-    it.  The host wall per step is timed without the profiler; the
-    device time of the kernels, by kind, comes from a trace of the same
-    steps with CUDA activity only (CPU tracing slows every operator
-    launch and would inflate the idle share).  Busy share = traced
-    device ms / untraced wall ms."""
+def device_profile(torch, step, n):
+    """Where the time of ``step`` goes.  The host wall per step is timed
+    without the profiler; the device time of the kernels, by kind, comes
+    from a trace of the same steps with CUDA activity only (CPU tracing
+    slows every operator launch and would inflate the idle share).  Busy
+    share = traced device ms / untraced wall ms."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.engine import paged_model as PM
-    params, pool, a, page = step_inputs(torch, cfg, torch.bfloat16)
-
-    def step():
-        PM.mixed_step(params, pool, **a, cfg=cfg, page_size=page)
-        torch.cuda.synchronize()
-
-    for _ in range(3):
+    for _ in range(2):
         step()
-    n = 10
     t0 = time.perf_counter()
     for _ in range(n):
         step()
@@ -476,28 +708,78 @@ def profile_step(torch, cfg):
         for _ in range(n):
             step()
         traced_wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    kinds = {"paged_attention": 0.0, "paged_prefill": 0.0, "gemm": 0.0,
-             "other": 0.0}
+    kinds = {name: 0.0 for name in KERNEL_INFO}
+    kinds.update(gemm=0.0, other=0.0)
     count = 0
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         count += 1
-        us = e.time_range.elapsed_us()
         name = e.name.lower()
-        kind = ("paged_attention" if "paged_attention_kernel" in name
-                else "paged_prefill" if "paged_prefill_kernel" in name
-                else "gemm" if any(w in name for w in (
-                    "gemm", "cutlass", "xmma", "nvjet", "matmul"))
-                else "other")
-        kinds[kind] += us / 1e3 / n
+        kind = next((k for k in KERNEL_INFO if f"{k}_kernel" in name),
+                    "gemm" if any(w in name for w in (
+                        "gemm", "cutlass", "xmma", "nvjet", "matmul"))
+                    else "other")
+        kinds[kind] += e.time_range.elapsed_us() / 1e3 / n
     busy = sum(kinds.values())
-    emit("profile", step="mixed_step", dtype="bfloat16", steps=n,
-         wall_ms_per_step=wall_ms, traced_wall_ms_per_step=traced_wall_ms,
-         device_ms_per_step=busy if count else "not measured",
-         device_busy_share=busy / wall_ms if count else "not measured",
-         device_kernels_per_step=count / n, device_ms_by_kind=kinds)
+    return dict(steps=n, wall_ms_per_step=wall_ms,
+                traced_wall_ms_per_step=traced_wall_ms,
+                device_ms_per_step=busy if count else "not measured",
+                device_busy_share=busy / wall_ms if count
+                else "not measured",
+                device_kernels_per_step=count / n, device_ms_by_kind=kinds)
+
+
+def profile_step(torch, cfg):
+    """Phase 9: one full-width bf16 paged mixed step (8 decode rows,
+    chunks of 64 and 37), ended by a synchronize as the engine's
+    sampling ends it."""
+    from repro_torch.engine import paged_model as PM
+    params, pool, a, page = step_inputs(torch, cfg, torch.bfloat16)
+
+    def step():
+        PM.mixed_step(params, pool, **a, cfg=cfg, page_size=page)
+        torch.cuda.synchronize()
+
+    emit("profile", step="mixed_step", model=cfg.name, dtype="bfloat16",
+         **device_profile(torch, step, 10))
     del params, pool
+
+
+def profile_slot(torch, cfg):
+    """Phase 9: the slot path at full width in bf16: one prefill of a
+    2048-token prompt into a one-row cache, and one decode step of 4
+    slots at positions 1200-3000 of a 4096-token cache, each ended by a
+    synchronize as the engine's sampling ends it."""
+    from repro_torch.models import model as M
+    dev, bf16, s = "cuda", torch.bfloat16, 2048
+    params = M.init(cfg, seed=0, dtype=bf16, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    one = M.init_cache(cfg, 1, SLOT_ECFG["max_len"], bf16, dev)
+    caches = M.init_cache(cfg, SLOT_ECFG["max_slots"], SLOT_ECFG["max_len"],
+                          bf16, dev)
+    prompt = torch.randint(0, cfg.vocab_size, (1, s), generator=gen,
+                           device=dev).to(torch.int32)
+    toks = torch.randint(0, cfg.vocab_size, (SLOT_ECFG["max_slots"],),
+                         generator=gen, device=dev).to(torch.int32)
+    pos = torch.tensor([1200, 2048, 2600, 3000], dtype=torch.int32,
+                       device=dev)
+
+    def prefill():
+        M.prefill(params, cfg, prompt, one)
+        torch.cuda.synchronize()
+
+    def decode():
+        M.decode_step(params, cfg, caches, toks, pos)
+        torch.cuda.synchronize()
+
+    emit("profile", step="slot prefill", model=cfg.name, dtype="bfloat16",
+         prompt=s, **device_profile(torch, prefill, 3))
+    emit("profile", step="slot decode_step", model=cfg.name,
+         dtype="bfloat16", slots=SLOT_ECFG["max_slots"],
+         **device_profile(torch, decode, 10))
+    del params, one, caches
 
 
 # ------------------------------------------------------------ main
@@ -521,6 +803,7 @@ def main() -> int:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import build, ops
+    from repro_torch.kernels import flash_prefill as fp
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import paged_prefill as pp
 
@@ -545,8 +828,14 @@ def main() -> int:
     cfg = get_config("qwen3-0.6b")
     full_width_step(torch, cfg)
     launches = serve(torch, cfg, pa, pp)
-    lines = timing(torch, cfg, launches)
+    gemma = get_config("gemma3-4b")
+    slot_step(torch, gemma, fp)
+    slot_launches = slot_serve(torch, gemma, {
+        "flash_prefill": fp, "paged_attention": pa, "paged_prefill": pp})
+    lines = timing(torch, cfg, launches) + flash_timing(torch, gemma,
+                                                        slot_launches)
     profile_step(torch, cfg)
+    profile_slot(torch, gemma)
 
     print(json.dumps({"kernels": lines}), flush=True)
     print(nvidia_smi(), flush=True)

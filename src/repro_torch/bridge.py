@@ -1,17 +1,19 @@
-"""Carry weights and KV pages over from the JAX package, as numpy arrays.
+"""Carry weights, KV pages and slot caches over from the JAX package, as
+numpy arrays.
 
 ``repro`` draws its parameters with ``jax.random`` and the port with
 ``torch.Generator``s, so the two never agree from a seed.  To compute
 the same thing in both packages, a caller hands the JAX param tree
-(``repro.models.model.init``: ``embedding``, the stacked ``run_0``
-leaves, ``final_norm``, an optional ``lm_head``) and any K/V pool to
-these functions as numpy arrays.  The layouts are the same in both
+(``repro.models.model.init``: ``embedding``, one stacked ``run_<i>``
+per layer run, ``final_norm``, an optional ``lm_head``), any K/V pool
+and any slot caches (``repro.models.model.init_cache``) to these
+functions as numpy arrays.  The layouts are the same in both
 packages, so each leaf is checked against the port's spec tree and
 copied as it is.
 """
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, List, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -65,3 +67,33 @@ def pool_from_numpy(k: Any, v: Any, dtype=None, device=None) -> PagePool:
     (same layout), on ``device`` (the card unless one is named)."""
     device = resolve_device(device)
     return PagePool(to_tensor(k, dtype, device), to_tensor(v, dtype, device))
+
+
+def caches_from_numpy(caches: Sequence[Mapping], cfg: ModelConfig,
+                      batch: int, cache_len: int, dtype=None,
+                      device=None) -> List[dict]:
+    """The JAX package's slot caches (one dict per layer run, leaves as
+    numpy arrays) -> the port's, on ``device`` (the card unless one is
+    named).  K/V take ``dtype`` if given; ring positions stay int32.
+    Raises on a missing or extra run or field, or a shape mismatch with
+    ``models.model.cache_struct(cfg, batch, cache_len)``."""
+    device = resolve_device(device)
+    struct = M.cache_struct(cfg, batch, cache_len)
+    if len(caches) != len(struct):
+        raise ValueError(f"{len(caches)} cache runs, expected "
+                         f"{len(struct)}")
+    out = []
+    for i, (run, want) in enumerate(zip(caches, struct)):
+        if set(run) != set(want):
+            raise ValueError(f"run {i}: fields {sorted(run)}, expected "
+                             f"{sorted(want)}")
+        conv = {}
+        for name, (shape, _axes) in want.items():
+            t = to_tensor(run[name], torch.int32 if name == "pos" else dtype,
+                          device)
+            if tuple(t.shape) != tuple(shape):
+                raise ValueError(f"run {i}/{name}: shape {tuple(t.shape)}, "
+                                 f"expected {shape}")
+            conv[name] = t
+        out.append(conv)
+    return out

@@ -60,13 +60,7 @@ def _layer_params(params, cfg: ModelConfig) -> List[dict]:
     if cfg.layer_runs[0][0] != DENSE:
         raise NotImplementedError(
             f"{cfg.name}: only DENSE layers are ported to the paged path")
-
-    def index(tree, i):
-        if isinstance(tree, dict):
-            return {k: index(v, i) for k, v in tree.items()}
-        return tree[i]
-
-    return [index(params["run_0"], i) for i in range(cfg.n_layers)]
+    return [M.layer_view(params["run_0"], i) for i in range(cfg.n_layers)]
 
 
 def _ffn(p_l: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:

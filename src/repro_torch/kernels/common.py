@@ -24,12 +24,27 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
     return False
 
 
-def check_inputs(q: torch.Tensor, k_pages: torch.Tensor,
-                 v_pages: torch.Tensor, n_heads: int) -> None:
+def _check_operands(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> None:
+    """dtype, contiguity and alignment, shared by every kernel."""
     if q.dtype not in DTYPE_CODES:
         raise TypeError(f"kernel takes float32 or bfloat16, got {q.dtype}")
-    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
-        raise TypeError("q, k_pages and v_pages must share one dtype")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("q, k and v must share one dtype")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    # the kernels read K/V rows as 16-byte vectors
+    d = q.shape[-1]
+    if (d * q.element_size()) % 16 or k.data_ptr() % 16 \
+            or v.data_ptr() % 16:
+        raise ValueError(f"head_dim {d} in {q.dtype} is not a whole number "
+                         "of 16-byte vectors, or K/V are unaligned")
+
+
+def check_inputs(q: torch.Tensor, k_pages: torch.Tensor,
+                 v_pages: torch.Tensor, n_heads: int) -> None:
+    """q (..., H, D) against K/V pages (P, page, Hkv, D)."""
     if k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
         raise ValueError(f"pages must be (P, page, Hkv, D), got "
                          f"{tuple(k_pages.shape)} and {tuple(v_pages.shape)}")
@@ -37,14 +52,20 @@ def check_inputs(q: torch.Tensor, k_pages: torch.Tensor,
     if q.shape[-1] != d or n_heads % hkv:
         raise ValueError(f"q {tuple(q.shape)} does not fit pages "
                          f"{tuple(k_pages.shape)}")
-    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    # the kernels read K/V rows as 16-byte vectors
-    if (d * q.element_size()) % 16 or k_pages.data_ptr() % 16 \
-            or v_pages.data_ptr() % 16:
-        raise ValueError(f"head_dim {d} in {q.dtype} is not a whole number "
-                         "of 16-byte vectors, or the pages are unaligned")
+    _check_operands(q, k_pages, v_pages)
+
+
+def check_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """q (B, Sq, H, D) against dense K/V (B, Sk, Hkv, D)."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"q must be (B, Sq, H, D) and k, v (B, Sk, Hkv, "
+                         f"D), got {tuple(q.shape)}, {tuple(k.shape)} and "
+                         f"{tuple(v.shape)}")
+    b, _, h, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d or h % k.shape[2]:
+        raise ValueError(f"q {tuple(q.shape)} does not fit k/v "
+                         f"{tuple(k.shape)}")
+    _check_operands(q, k, v)
 
 
 def check_index(t: torch.Tensor, shape: tuple, name: str) -> None:

@@ -1,11 +1,11 @@
-"""Kernel dispatch for the paged model, the counterpart of
-``repro/kernels/ops.py``.
+"""Kernel dispatch, the counterpart of ``repro/kernels/ops.py``.
 
 ``impl="kernel"`` goes to the kernel wrappers (the CUDA kernels for
 CUDA tensors, their plain versions for CPU tensors); ``impl="ref"`` goes
 straight to the plain versions on any device, so a caller can hold one
 against the other.  ``paged_prefill`` pads the chunk to a block
-multiple as the JAX wrapper does.
+multiple as the JAX wrapper does; ``flash_attention`` pads nothing (the
+kernel masks the ragged edges itself).
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_prefill import flash_prefill as _flash
 from repro_torch.kernels.paged_attention import paged_attention as _paged
 from repro_torch.kernels.paged_prefill import paged_prefill as _paged_pre
 
@@ -52,6 +53,18 @@ def paged_prefill(q, k_pages, v_pages, block_tables, ctx_lens, chunk_lens,
     out = _paged_pre(q.contiguous(), k_pages, v_pages, block_tables,
                      ctx_lens, chunk_lens)
     return out[:, :s]
+
+
+def flash_attention(q, k, v, lengths, *, window: int = 0, q_offset: int = 0,
+                    impl: str = "kernel") -> torch.Tensor:
+    """Causal/windowed prefill attention over dense K/V.  See
+    kernels/ref.py for shapes."""
+    _check_impl(impl)
+    if impl == "ref":
+        return ref.flash_prefill_ref(q, k, v, lengths, window=window,
+                                     q_offset=q_offset)
+    return _flash(q.contiguous(), k.contiguous(), v.contiguous(), lengths,
+                  window=window, q_offset=q_offset)
 
 
 def _round_up(x: int, m: int) -> int:

@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the port's attention kernels.
 
 They compute, with dense gathers and a full softmax in float32, what
-the CUDA kernels compute with paged, online-softmax loops.  The CPU
+the CUDA kernels compute with tiled, online-softmax loops.  The CPU
 tests hold them against the JAX package, the kernel wrappers take them
 for CPU tensors, and ``chip_smoke.py`` holds each kernel against them
 on the card.  Shapes as in ``repro/kernels/ref.py``.
@@ -72,3 +72,32 @@ def paged_prefill_ref(q: torch.Tensor, k_pages: torch.Tensor,
     probs = probs * mask.any(-1)[:, None, None, :, None]
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
     return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def flash_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      lengths: torch.Tensor, *, window: int = 0,
+                      q_offset: int = 0) -> torch.Tensor:
+    """Causal (optionally sliding-window) prefill attention over dense
+    K/V.
+
+    q: (B, Sq, H, D), row i at absolute position ``q_offset + i``; k, v:
+    (B, Sk, Hkv, D); lengths: (B,) int32 valid keys.  A row with no
+    valid key (``qpos >= lengths`` under a window) is zero.  Returns
+    (B, Sq, H, D).
+    """
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    qpos = torch.arange(sq, device=q.device) + q_offset
+    kpos = torch.arange(sk, device=q.device)
+    mask = kpos[None, :] <= qpos[:, None]
+    if window:
+        mask &= kpos[None, :] > (qpos[:, None] - window)
+    mask = mask[None] & (kpos[None, None, :] < lengths[:, None, None])
+    qf = (q.float() * d ** -0.5).reshape(b, sq, hkv, g, d)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float())
+    logits = logits.masked_fill(~mask[:, None, None], NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    probs = probs * mask.any(-1)[:, None, None, :, None]
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
+    return out.reshape(b, sq, h, d).to(q.dtype)

@@ -1,6 +1,8 @@
-"""Building blocks of the paged serving path, the PyTorch counterpart of
-``repro/models/layers.py``: norms, RoPE, GQA projections and the
-gated MLP.
+"""Shared building blocks, the PyTorch counterpart of
+``repro/models/layers.py``: norms, RoPE, masks, GQA attention (dense,
+and causal/windowed through the ``flash_prefill`` kernel), projections
+and the gated MLP.  ``_blockwise`` and ``mlstm_parallel``, which serve
+training, the dry-run and xLSTM, are not ported yet.
 
 Plain functions on tensors; parameters arrive as dicts built from
 ``repro_torch.models.params.Spec`` trees in ``repro``'s layouts
@@ -9,9 +11,13 @@ over between the packages unchanged.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.params import Spec
 
 
@@ -56,7 +62,78 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor,
     return out.to(dtype)
 
 
+# ---------------------------------------------------------------- masks
+def causal_mask(sq: int, sk: int, q_offset: int = 0, window: int = 0,
+                device=None) -> torch.Tensor:
+    """(sq, sk) boolean mask.  ``q_offset`` shifts query positions
+    (chunked prefill); ``window`` > 0 restricts to a sliding window."""
+    qpos = torch.arange(sq, device=device) + q_offset
+    kpos = torch.arange(sk, device=device)
+    m = kpos[None, :] <= qpos[:, None]
+    if window:
+        m &= kpos[None, :] > (qpos[:, None] - window)
+    return m
+
+
+def decode_mask(positions: torch.Tensor, sk: int,
+                window: int = 0) -> torch.Tensor:
+    """(B, 1, sk) mask for decoding one token at ``positions`` (B,)."""
+    kpos = torch.arange(sk, device=positions.device)
+    m = kpos[None, :] <= positions[:, None]
+    if window:
+        m &= kpos[None, :] > (positions[:, None] - window)
+    return m[:, None, :]
+
+
 # ---------------------------------------------------------------- attention
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              mask: torch.Tensor, *, softcap: float = 0.0,
+              scale: Optional[float] = None) -> torch.Tensor:
+    """Grouped-query attention core, softmax in float32.
+
+    q: (B, Sq, H, D); k, v: (B, Sk, Hkv, D); mask (Sq, Sk) or
+    (B, Sq, Sk).  Returns (B, Sq, H, D).  A fully masked row averages V
+    uniformly, as in the JAX package.
+    """
+    b, sq, h, d = q.shape
+    hkv, dv = k.shape[2], v.shape[-1]
+    g = h // hkv
+    if scale is None:
+        scale = d ** -0.5
+    qf = (q.float() * scale).reshape(b, sq, hkv, g, d)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float())
+    if softcap:
+        logits = torch.tanh(logits / softcap) * softcap
+    mask_b = (mask[:, None, None] if mask.dim() == 3
+              else mask[None, None, None])
+    logits = logits.masked_fill(~mask_b, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
+    return out.reshape(b, sq, h, dv).to(q.dtype)
+
+
+def attn_causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                window: int = 0, softcap: float = 0.0,
+                scale: Optional[float] = None, q_offset: int = 0,
+                impl: str = "kernel") -> torch.Tensor:
+    """Causal (optionally windowed) attention over every key of k/v:
+    the ``flash_prefill`` kernel for CUDA tensors, its plain version for
+    CPU tensors (``impl="ref"``: the plain version on any device).
+
+    The kernel takes the default scale and no logit softcap; no config
+    served by the port sets either (MLA, which passes a scale, is not
+    ported yet), so both are refused rather than computed elsewhere.
+    """
+    if softcap or scale is not None:
+        raise NotImplementedError(
+            "attn_causal with a logit softcap or an explicit scale is not "
+            "ported yet (ROADMAP C1b)")
+    lengths = torch.full((q.shape[0],), k.shape[1], dtype=torch.int32,
+                         device=q.device)
+    return kops.flash_attention(q, k, v, lengths, window=window,
+                                q_offset=q_offset, impl=impl)
+
+
 def attn_specs(cfg) -> dict:
     d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     em = "embed"

@@ -18,7 +18,9 @@ import numpy as np  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.flash_prefill import flash_prefill as jflash  # noqa: E402
 from repro.kernels.paged_attention import paged_attention as jpaged  # noqa: E402
+from repro_torch.kernels import flash_prefill as fp_mod  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import paged_attention as pa_mod  # noqa: E402
 from repro_torch.kernels import paged_prefill as pp_mod  # noqa: E402
@@ -45,6 +47,17 @@ PREFILL_CASES = [
     (1, 4, 4, 64, 64),
     (2, 8, 2, 64, 64),
     (1, 8, 4, 32, 8),
+]
+
+
+FLASH_CASES = [
+    # (B, Sq, Sk, H, Hkv, D, window, q_offset, dtype) — tests/test_kernels.py:59
+    (2, 128, 128, 8, 4, 64, 0, 0, "float32"),
+    (2, 128, 256, 4, 2, 64, 0, 128, "float32"),    # chunked prefill
+    (1, 256, 256, 4, 1, 128, 64, 0, "float32"),    # sliding window MQA
+    (2, 64, 64, 4, 4, 32, 0, 0, "float32"),
+    (1, 192, 320, 6, 3, 64, 100, 128, "float32"),  # window + offset
+    (2, 128, 128, 8, 4, 64, 0, 0, "bfloat16"),
 ]
 
 
@@ -185,3 +198,65 @@ def test_ops_rejects_unknown_impl():
     with pytest.raises(ValueError, match="impl"):
         ops.paged_attention(*(t for _, t in args), impl="pallas")
 
+
+
+def _flash_inputs(rng, b, sq, sk, h, hkv, d, dtype, lengths=None):
+    q = _pair(rng.normal(size=(b, sq, h, d)), dtype)
+    k = _pair(rng.normal(size=(b, sk, hkv, d)), dtype)
+    v = _pair(rng.normal(size=(b, sk, hkv, d)), dtype)
+    if lengths is None:
+        lengths = rng.integers(sk // 2, sk + 1, b)
+    return q, k, v, _ints(lengths)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hkv,d,win,qoff,dtype", FLASH_CASES)
+def test_flash_prefill_matches_jax(b, sq, sk, h, hkv, d, win, qoff, dtype):
+    """The port's wrapper (its plain version on the CPU) against the
+    Pallas kernel in interpret mode, at the JAX test's blocks."""
+    rng = np.random.default_rng(13)
+    args = _flash_inputs(rng, b, sq, sk, h, hkv, d, dtype)
+    out = fp_mod.flash_prefill(*(t for _, t in args), window=win,
+                               q_offset=qoff)
+    want = jflash(*(j for j, _ in args), window=win, q_offset=qoff,
+                  block_q=64, block_k=64)
+    _close(out, want, 3e-5 if dtype == "float32" else 3e-2)
+
+
+def test_flash_attention_ragged_matches_jax_ops():
+    """Sequence lengths that are no block multiple: the JAX wrapper pads
+    them, the port's kernel masks the edges itself."""
+    rng = np.random.default_rng(14)
+    args = _flash_inputs(rng, 2, 100, 173, 4, 2, 64, "float32", [173, 90])
+    out = ops.flash_attention(*(t for _, t in args))
+    _close(out, jops.flash_attention(*(j for j, _ in args), block_q=64,
+                                     block_k=64), 3e-5)
+
+
+def test_flash_prefill_rows_without_keys_are_zero():
+    """Under a window, rows at ``qpos >= lengths + window - 1`` see no
+    key: zeros in the Pallas kernel, the JAX oracle and the port."""
+    rng = np.random.default_rng(15)
+    args = _flash_inputs(rng, 2, 64, 64, 4, 2, 32, "float32", [64, 20])
+    out = ops.flash_attention(*(t for _, t in args), window=16)
+    jq = [j for j, _ in args]
+    kernel = jflash(*jq, window=16, block_q=32, block_k=32)
+    oracle = jref.flash_prefill_ref(*jq, window=16)
+    _close(out, kernel, 3e-5)
+    _close(out, oracle, 3e-5)
+    assert torch.all(out[1, 35:] == 0)
+    assert np.all(np.asarray(kernel)[1, 35:] == 0)
+    assert torch.all(out[1, :35].abs().sum(-1) > 0)
+
+
+def test_cpu_flash_wrapper_takes_plain_version_without_launching():
+    rng = np.random.default_rng(16)
+    args = [t for _, t in _flash_inputs(rng, 1, 24, 24, 4, 2, 32,
+                                        "float32")]
+    before = fp_mod.launches
+    for impl in ("kernel", "ref"):
+        torch.testing.assert_close(
+            ops.flash_attention(*args, window=8, impl=impl),
+            ref.flash_prefill_ref(*args, window=8))
+    assert fp_mod.launches == before
+    with pytest.raises(ValueError, match="window"):
+        fp_mod.flash_prefill(*args, window=-1)

@@ -141,3 +141,49 @@ def test_bridge_round_trips_dtypes_and_rejects_mismatch():
     k = np.zeros((2, 3, 8, 2, 64), np.float32)
     pool = bridge.pool_from_numpy(k, k + 1, device="cpu")
     assert pool.k.shape == (2, 3, 8, 2, 64) and float(pool.v[0, 0, 0, 0, 0]) == 1
+
+
+def _qkv(rng, b, sq, sk, h, hkv, d):
+    return (rng.normal(size=(b, sq, h, d)).astype(np.float32),
+            rng.normal(size=(b, sk, hkv, d)).astype(np.float32),
+            rng.normal(size=(b, sk, hkv, d)).astype(np.float32))
+
+
+@pytest.mark.parametrize("mask_dims,softcap", [(2, 0.0), (3, 0.0),
+                                               (3, 30.0)])
+def test_attention_matches_jax(mask_dims, softcap):
+    rng = np.random.default_rng(20)
+    q, k, v = _qkv(rng, 2, 5, 9, 4, 2, 32)
+    if mask_dims == 2:
+        jmask = JL.causal_mask(5, 9, q_offset=4, window=3)
+        mask = L.causal_mask(5, 9, q_offset=4, window=3)
+        np.testing.assert_array_equal(mask.numpy(), np.asarray(jmask))
+    else:
+        jmask = JL.decode_mask(jnp.asarray([3, 8]), 9, window=4)
+        mask = L.decode_mask(torch.tensor([3, 8]), 9, window=4)
+        np.testing.assert_array_equal(mask.numpy(), np.asarray(jmask))
+        q = q[:, :1]
+    _close(L.attention(_t(q), _t(k), _t(v), mask, softcap=softcap),
+           JL.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                        jmask, softcap=softcap))
+
+
+@pytest.mark.parametrize("window,q_offset", [(0, 0), (64, 0), (0, 37),
+                                             (64, 37)])
+def test_attn_causal_matches_jax(window, q_offset):
+    """The port's attn_causal (the flash_prefill wrapper, its plain
+    version on the CPU) against the JAX package's."""
+    rng = np.random.default_rng(21)
+    q, k, v = _qkv(rng, 2, 150, 150 + q_offset, 4, 2, 32)
+    _close(L.attn_causal(_t(q), _t(k), _t(v), window=window,
+                         q_offset=q_offset),
+           JL.attn_causal(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          window=window, q_offset=q_offset))
+
+
+@pytest.mark.parametrize("kw", [dict(softcap=30.0), dict(scale=0.1)],
+                         ids=["softcap", "scale"])
+def test_attn_causal_refuses_softcap_and_scale(kw):
+    x = torch.zeros(1, 4, 2, 32)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        L.attn_causal(x, x, x, **kw)
