@@ -31,20 +31,24 @@ Phases, each printing one JSON line:
             with the same tokens both times, ``flash_prefill`` launched
             exactly 34 times per prefill and the paged kernels never;
 8. timing   each kernel, its plain version, the library call and the
-            least time the card could take, at the serving shapes;
+            least time the card could take, at the serving shapes; each
+            kernel's device time alone from a profiler trace;
 9. profile  host wall and device time, by kind of kernel
             (torch.profiler), of one full-width bf16 paged mixed_step,
             one gemma3-4b slot prefill of 2048 tokens and one 4-slot
             decode step.
 
 Then the line ``{"kernels": [...]}``, the nvidia-smi line, and as the
-last line ``{"ok": true, "device": {...}}``.  Any failure raises and
+last line ``{"ok": true, "device": {...}}``.  ``--only kernels,timing``
+(say) runs the build and just those phases, for a quick check after a
+kernel change; it prints no kernels line.  Any failure raises and
 exits non-zero.  Weights are random, drawn from fixed seeds.  Without a
 CUDA device, or without the repository beside it, the script exits
 non-zero and prints no result.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import pathlib
 import subprocess
@@ -234,6 +238,54 @@ def check_kernels(torch, ops_mod):
                     flash_case(torch, gen, 1, 2048, 2048, 8, 4, 256, dt,
                                [2048]), dt, 1,
                     f"gemma3-4b B1 S2048 D256 window{win}", window=win)
+    # the bf16 twin of every float32 prefill case above, which the
+    # tensor-core bodies take, then bf16 at G 3, 5 and 16, at D 48, 128,
+    # 192 and 256, and at D 256 with Sq no multiple of 64.  Their own
+    # generator keeps the inputs of the cases above as they were.
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    for b, h, hkv, d, page in [(2, 4, 4, 32, 8), (1, 8, 4, 64, 16),
+                               (2, 8, 2, 32, 16), (1, 4, 4, 64, 64),
+                               (2, 8, 2, 64, 64), (1, 8, 4, 32, 8)]:
+        compare("paged_prefill",
+                prefill_case(torch, gen, b, h, hkv, d, page, 24, 192 // page,
+                             bf16), bf16, 1,
+                f"B{b} H{h} Hkv{hkv} D{d} page{page} S24")
+    compare("paged_prefill",
+            prefill_case(torch, gen, 1, 4, 2, 32, 8, 32, 4, bf16, [0], [32]),
+            bf16, 1, "ctx 0")
+    compare("paged_prefill",
+            prefill_case(torch, gen, 2, 4, 2, 32, 8, 16, 4, bf16, [8, 0],
+                         [5, 12]), bf16, 1, "padding rows zero",
+            extra=lambda o: bool((o[0, 5:] == 0).all()
+                                 and (o[1, 12:] == 0).all()))
+    for b, h, hkv, d, page, s in [
+            (2, 9, 3, 64, 16, 40), (2, 10, 2, 64, 16, 40),
+            (1, 16, 1, 64, 16, 64), (2, 4, 2, 48, 16, 40),
+            (2, 8, 4, 128, 16, 64), (1, 8, 4, 256, 16, 64)]:
+        compare("paged_prefill",
+                prefill_case(torch, gen, b, h, hkv, d, page, s, 24, bf16),
+                bf16, 1, f"B{b} H{h} Hkv{hkv} D{d} page{page} S{s}")
+    for b, sq, sk, h, hkv, d, win, qoff in [
+            (2, 128, 256, 4, 2, 64, 0, 128), (1, 256, 256, 4, 1, 128, 64, 0),
+            (2, 64, 64, 4, 4, 32, 0, 0), (1, 192, 320, 6, 3, 64, 100, 128),
+            (1, 200, 200, 9, 3, 64, 0, 0), (2, 150, 250, 10, 2, 64, 64, 100),
+            (1, 100, 100, 16, 1, 64, 0, 0), (2, 130, 130, 4, 2, 48, 0, 0),
+            (1, 300, 300, 8, 4, 128, 128, 0), (1, 300, 300, 4, 2, 192, 0, 0),
+            (1, 1000, 1000, 8, 4, 256, 0, 0),
+            (2, 1000, 1000, 8, 4, 256, 300, 0)]:
+        compare("flash_prefill",
+                flash_case(torch, gen, b, sq, sk, h, hkv, d, bf16), bf16, 1,
+                f"B{b} Sq{sq} Sk{sk} H{h} Hkv{hkv} D{d} window{win} "
+                f"q_offset{qoff}", window=win, q_offset=qoff)
+    compare("flash_prefill",
+            flash_case(torch, gen, 2, 100, 173, 4, 2, 64, bf16, [173, 90]),
+            bf16, 1, "ragged Sq100 Sk173 lengths 173/90")
+    compare("flash_prefill",
+            flash_case(torch, gen, 2, 64, 64, 4, 2, 32, bf16, [64, 20]), bf16,
+            1, "rows without keys zero", window=16,
+            extra=lambda o: bool((o[1, 35:] == 0).all()
+                                 and (o[1, :35] != 0).any(-1).all()))
     # an empty batch launches nothing and counts nothing
     from repro_torch.kernels import flash_prefill as fp
     from repro_torch.kernels import paged_attention as pa
@@ -556,6 +608,24 @@ def time_ms(torch, fn, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
+def kernel_device_ms(torch, fn, name, iters=20):
+    """The mean device time of the ``<name>_kernel`` launches that ``fn``
+    makes, from a CUDA-only ``torch.profiler`` trace of ``iters`` calls:
+    the kernel alone, where ``time_ms`` of a small kernel also counts the
+    host's launch overhead between calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and f"{name}_kernel" in e.name.lower()]
+    return sum(us) / len(us) / 1e3 if us else "not measured"
+
+
 def timing(torch, cfg, launches):
     """Phase 8: kernel, plain and library times and the bound, at the
     serving shapes (bf16, H 16, Hkv 8, D 64, page 16, a pool of 1025
@@ -597,7 +667,8 @@ def timing(torch, cfg, launches):
         time_ms(torch, lambda: ref.paged_attention_ref(*args)),
         time_ms(torch, lambda: F.scaled_dot_product_attention(
             qs, k, v, attn_mask=mask, enable_gqa=True)),
-        nbytes, flops, "bfloat16"))
+        nbytes, flops, "bfloat16", device_ms=kernel_device_ms(
+            torch, lambda: ops.paged_attention(*args), "paged_attention")))
 
     # prefill: 2 chunks of 64 at serving contexts
     s = 64
@@ -627,7 +698,8 @@ def timing(torch, cfg, launches):
         time_ms(torch, lambda: ref.paged_prefill_ref(*pargs)),
         time_ms(torch, lambda: F.scaled_dot_product_attention(
             qs, k, v, attn_mask=pmask, enable_gqa=True)),
-        nbytes, flops, "bfloat16"))
+        nbytes, flops, "bfloat16", device_ms=kernel_device_ms(
+            torch, lambda: ops.paged_prefill(*pargs), "paged_prefill")))
     return lines
 
 
@@ -673,6 +745,9 @@ def flash_timing(torch, cfg, launches):
                                                          window=win)),
             time_ms(torch, library), nbytes, flops, "bfloat16",
             case=f"B1 S{s} H{h} Hkv{hkv} D{d} bf16 window {win}",
+            device_ms=kernel_device_ms(
+                torch, lambda: ops.flash_attention(q, k, v, ln, window=win),
+                "flash_prefill"),
             library_max_abs_err=lib_err))
     return lines[:1]
 
@@ -783,7 +858,50 @@ def profile_slot(torch, cfg):
 
 
 # ------------------------------------------------------------ main
+def ptxas_summary(log):
+    """Registers and spills of each compiled kernel from ``ptxas -v``,
+    and a count of its other notes by code (C7519 and the like: wgmma
+    fences that ptxas injected or wgmmas it serialised)."""
+    import re
+    fns, notes, fn = {}, {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            k = re.search(r"([a-z_]+_kernel(?:_tc)?)I(.*?)EEv", m.group(1))
+            fn = m.group(1)[-40:]
+            if k:
+                args = [a or b for a, b in re.findall(
+                    r"Li(\d+)E|^(f|13__nv_bfloat16)", k.group(2) + "E")]
+                fn = f"{k.group(1)}<{','.join(args)}>"
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            fns.setdefault(fn, {})["spill"] = [int(m.group(1)),
+                                               int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            fns.setdefault(fn, {})["registers"] = int(m.group(1))
+        m = re.search(r"\((C\d+)\)", line)
+        if m:
+            notes[m.group(1)] = notes.get(m.group(1), 0) + 1
+    return dict(functions=fns, notes=notes)
+
+
+PHASES = ("kernels", "step", "serve", "slot_step", "slot_serve", "timing",
+          "profile")
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument(
+        "--only", default=",".join(PHASES),
+        help="comma-separated phases to run after the build, of "
+        f"{', '.join(PHASES)} (default: all; the kernels line is printed "
+        "only when all run)")
+    only = set(parser.parse_args().only.split(","))
+    if not only <= set(PHASES):
+        parser.error(f"unknown phases {sorted(only - set(PHASES))}")
     try:
         import torch
     except ImportError:
@@ -815,29 +933,38 @@ def main() -> int:
     t0 = time.perf_counter()
     reports = build.build()
     emit("build", seconds=time.perf_counter() - t0, kernels=list(
-        build.KERNELS), ptxas={n: [ln.strip() for ln in log.splitlines()
-                                   if "registers" in ln or "spill" in ln]
+        build.KERNELS), ptxas={n: ptxas_summary(log)
                                for n, log in reports.items()})
 
-    results = check_kernels(torch, ops)
-    for r in results:
-        emit("kernel_check", **r)
-    if not all(r["ok"] for r in results):
-        raise AssertionError("a kernel disagrees with its plain version")
+    if "kernels" in only:
+        results = check_kernels(torch, ops)
+        for r in results:
+            emit("kernel_check", **r)
+        if not all(r["ok"] for r in results):
+            raise AssertionError("a kernel disagrees with its plain version")
 
     cfg = get_config("qwen3-0.6b")
-    full_width_step(torch, cfg)
-    launches = serve(torch, cfg, pa, pp)
     gemma = get_config("gemma3-4b")
-    slot_step(torch, gemma, fp)
-    slot_launches = slot_serve(torch, gemma, {
-        "flash_prefill": fp, "paged_attention": pa, "paged_prefill": pp})
-    lines = timing(torch, cfg, launches) + flash_timing(torch, gemma,
-                                                        slot_launches)
-    profile_step(torch, cfg)
-    profile_slot(torch, gemma)
+    launches = slot_launches = dict.fromkeys(KERNEL_INFO, 0)
+    if "step" in only:
+        full_width_step(torch, cfg)
+    if "serve" in only:
+        launches = serve(torch, cfg, pa, pp)
+    if "slot_step" in only:
+        slot_step(torch, gemma, fp)
+    if "slot_serve" in only:
+        slot_launches = slot_serve(torch, gemma, {
+            "flash_prefill": fp, "paged_attention": pa, "paged_prefill": pp})
+    lines = []
+    if "timing" in only:
+        lines = timing(torch, cfg, launches) + flash_timing(torch, gemma,
+                                                            slot_launches)
+    if "profile" in only:
+        profile_step(torch, cfg)
+        profile_slot(torch, gemma)
 
-    print(json.dumps({"kernels": lines}), flush=True)
+    if only == set(PHASES):
+        print(json.dumps({"kernels": lines}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

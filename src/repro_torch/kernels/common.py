@@ -68,6 +68,17 @@ def check_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     _check_operands(q, k, v)
 
 
+def check_tile_head_dim(q: torch.Tensor) -> None:
+    """The bf16 bodies of the prefill kernels run on the tensor cores in
+    steps of 16 along D, with at most 256 columns: D a multiple of 16,
+    at most 256.  float32 runs the CUDA-core bodies, which take any D
+    of whole 16-byte vectors."""
+    d = q.shape[-1]
+    if q.dtype == torch.bfloat16 and (d % 16 or d > 256):
+        raise ValueError(f"head_dim {d} in bfloat16 must be a multiple of "
+                         "16 and at most 256")
+
+
 def check_index(t: torch.Tensor, shape: tuple, name: str) -> None:
     if t.dtype != torch.int32 or tuple(t.shape) != shape \
             or not t.is_contiguous():

@@ -13,26 +13,56 @@
 // q, K, V and one write of the output.  At the serving shapes (Sq = Sk =
 // 2048, G = 2, D = 256, bf16) that is ~500-700 FLOP per byte, above the
 // ~295 at which the tensor cores outrun the 3.35 TB/s: the least time is
-// set by the operations.  This version computes on CUDA cores in
-// float32, so it runs far from that bound; tensor cores are later work.
+// set by the operations.
 //
-// Design: one block per (KV head, tile of QT query positions, sequence),
-// with the G query heads of the KV group folded into the rows (R = G * QT)
-// so that they share each staged K/V tile, as on the TPU.  The TPU walks
-// the key blocks as a sequential grid dimension with a VMEM accumulator
-// and skips dead blocks with `pl.when`; here a loop inside the block walks
-// key tiles from the first key the window leaves alive,
-// max(0, q_lo - window + 1), to the last the causal limit and the length
-// allow, min(q_hi, lengths[b] - 1), so no dead key is ever loaded: an SWA
-// layer reads about window + QT keys per tile whatever the sequence
-// length.  The kernel masks the ragged Sq and Sk edges itself; nothing is
-// padded.  The tiles are sized from D (the wrapper's launcher halves the
+// Two bodies, picked by dtype (a dispatch, not a fallback):
+// - bf16: flash_prefill_kernel_tc, on Hopper's tensor cores through the
+//   shared tile of attn_tile.cuh (wgmma QK^T and PV, the online softmax
+//   in registers, a cp.async ring of K/V stages; its header says how).
+//   It replaces the CUDA-core body for bf16, which ran at 135-148x
+//   the bound and 11-49x slower than SDPA.  At D 256 a block takes 97 KB
+//   (32-key stages), so two blocks share an SM.  The causal tiles are
+//   unequal (the last query tile walks every key tile, the first one),
+//   so the grid pairs heavy and light tiles (zigzag_tile): the first
+//   half of the blocks takes the heaviest first, the second half the
+//   lightest first, and two blocks that share an SM sum to about the
+//   same work.  Takes D a
+//   multiple of 16, at most 256.  On an H100 80GB HBM3 at 700 W
+//   (chip_smoke.py's timing phase, B 1, S 2048, H 8, Hkv 4, D 256) it
+//   takes 0.061 ms with the window 1024 and 0.089 ms without, against
+//   1.755 and 2.580 ms for the CUDA-core body and 0.156 and 0.053 ms for
+//   SDPA: ~200 TFLOP/s on the live pairs, 4.7-5.1x the bound.  A
+//   variant that skips the K/V copies runs 1.3-1.5x faster
+//   (benchmarks/bench_torch_tile_variants.py): the copies, not the
+//   products, are what is left.
+// - float32: flash_prefill_kernel below, the CUDA-core body: CUDA
+//   cores in float32 (TF32 tensor cores would miss the float32
+//   tolerance of 2e-5/3e-5).
+//
+// Common to both: one block per (KV head, tile of QT query positions,
+// sequence), with the G query heads of the KV group folded into the rows
+// (R = G * QT) so that they share each staged K/V tile, as on the TPU.
+// The TPU walks the key blocks as a sequential grid dimension with a
+// VMEM accumulator and skips dead blocks with `pl.when`; here a loop
+// inside the block walks key tiles from the first key the window leaves
+// alive, max(0, q_lo - window + 1), to the last the causal limit and the
+// length allow, min(q_hi, lengths[b] - 1), so no dead key is ever
+// loaded: an SWA layer reads about window + QT keys per tile whatever
+// the sequence length.  A tile that straddles the diagonal or the window
+// edge is masked inside.  The kernel masks the ragged Sq and Sk edges
+// itself; nothing is padded.
+//
+// The float32 body: the tiles are sized from D (the launcher halves the
 // key tile, then the query tile, until the block's shared memory fits
-// 227 KB: at D = 256 a 64-row, 64-key tile would need 279 KB).  The online
-// softmax runs in float32 in shared memory; p stays masked to 0 and l is
-// clamped at 1e-30, so a row with no visible key gives exact zeros.  The
-// products use the 4 x 4 register micro-tiles and padded rows of
-// paged_prefill.cu.
+// 227 KB: at D = 256 a 64-row, 64-key tile would need 279 KB).  The
+// online softmax runs in float32 in shared memory; p stays masked to 0
+// and l is clamped at 1e-30, so a row with no visible key gives exact
+// zeros.  The products use the 4 x 4 register micro-tiles and padded
+// rows of paged_prefill.cu.
+//
+// What is left for the bf16 body: TMA copies, a producer warp, pingpong
+// between two warpgroups, and a split over keys for short grids.
+#include "attn_tile.cuh"
 #include "common.cuh"
 
 namespace {
@@ -242,11 +272,79 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
   return (int)cudaGetLastError();
 }
 
+// The bf16 body on the tensor cores (attn_tile.cuh).  Rows, keys and
+// visibility as flash_prefill_kernel's; the query tiles are ordered
+// by zigzag_tile (attn_tile.cuh).
+template <int DP, int NK, int STAGES>
+__global__ void __launch_bounds__(kTileThreads)
+    flash_prefill_kernel_tc(const bf16* __restrict__ q,
+                            const bf16* __restrict__ k,
+                            const bf16* __restrict__ v,
+                            const int* __restrict__ lengths,
+                            bf16* __restrict__ out, int Sq, int Sk, int H,
+                            int Hkv, int D, int QT, int window, int q_offset,
+                            float scale) {
+  const int hk = blockIdx.x, b = blockIdx.z;
+  const int q0 = zigzag_tile(blockIdx.y, gridDim.y) * QT;
+  const int G = H / Hkv, R = G * QT;
+  const int nrows = min(QT, Sq - q0);  // rows of this tile that exist
+  const int q_lo = q_offset + q0, q_hi = q_lo + nrows - 1;
+  const int len = min(lengths[b], Sk);
+  // the live key range of the whole tile, and the range every row sees
+  const int kfirst = window > 0 ? max(0, q_lo - window + 1) : 0;
+  const int klast = min(q_hi, len - 1);
+  const int kfull_lo = window > 0 ? max(0, q_hi - window + 1) : 0;
+  const int kfull_hi = min(q_lo, len - 1);
+  // element offset of row r (= g * QT + j) in q and out, or -1
+  auto row = [&](int r) -> long long {
+    const int g = r / QT, j = r - g * QT;
+    if (r >= R || j >= nrows) return -1;
+    return (((long long)b * Sq + q0 + j) * H + (long long)hk * G + g) * D;
+  };
+  auto visible = [&](int r, int kpos) {
+    const int j = r % QT, qpos = q_lo + j;
+    return r < R && j < nrows && kpos <= qpos && kpos < len &&
+           (window <= 0 || kpos > qpos - window);
+  };
+  extern __shared__ uint8_t tc_smem[];
+  attn_tile<DP, NK, STAGES>(
+      tc_smem, q, k, v, out, D, scale, kfirst, klast, kfull_lo, kfull_hi,
+      row,
+      [&](int kpos) -> long long {
+        if (kpos > klast) return -1;
+        return (((long long)b * Sk + kpos) * Hkv + hk) * D;
+      },
+      visible, row);
+}
+
+template <int DP, int NK, int STAGES>
+struct LaunchTc {
+  static int run(const void* q, const void* k, const void* v,
+                 const void* lengths, void* out, int B, int Sq, int Sk, int H,
+                 int Hkv, int D, int window, int q_offset, float scale,
+                 cudaStream_t stream) {
+    const int smem = AttnTile<DP, NK, STAGES>::kBytes;
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_prefill_kernel_tc<DP, NK, STAGES>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    const int qt = kTileRows / (H / Hkv);
+    const dim3 grid(Hkv, (Sq + qt - 1) / qt, B);
+    flash_prefill_kernel_tc<DP, NK, STAGES>
+        <<<grid, kTileThreads, smem, stream>>>(
+            (const bf16*)q, (const bf16*)k, (const bf16*)v,
+            (const int*)lengths, (bf16*)out, Sq, Sk, H, Hkv, D, qt, window,
+            q_offset, scale);
+    return (int)cudaGetLastError();
+  }
+};
+
 }  // namespace
 
 // q (B, Sq, H, D); k, v (B, Sk, Hkv, D); lengths (B,) int32; out (B, Sq,
 // H, D).  All contiguous, on the device; D * sizeof(dtype) a multiple of
-// 16.  window 0 means no window.  dtype: 0 = float32, 1 = bfloat16.
+// 16, and for bfloat16 D a multiple of 16 at most 256.  window 0 means no
+// window.  dtype: 0 = float32, 1 = bfloat16.
 // Returns a cudaError_t.
 extern "C" int flash_prefill_launch(const void* q, const void* k,
                                     const void* v, const void* lengths,
@@ -259,7 +357,9 @@ extern "C" int flash_prefill_launch(const void* q, const void* k,
     return launch<float>(q, k, v, lengths, out, B, Sq, Sk, H, Hkv, D, window,
                          q_offset, scale, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, lengths, out, B, Sq, Sk, H, Hkv, D,
-                                 window, q_offset, scale, s);
+    return tile_inputs_ok(q, k, v, out, D, H, Hkv)
+               ? launch_tile<LaunchTc>(D, q, k, v, lengths, out, B, Sq, Sk,
+                                       H, Hkv, D, window, q_offset, scale, s)
+               : (int)cudaErrorInvalidValue;
   return (int)cudaErrorInvalidValue;
 }

@@ -13,26 +13,48 @@
 // i.e. 2 * R / (bytes per element) FLOP per byte.  At the serving shapes
 // (chunk 64, G 2, bf16) that is 128 FLOP/byte, below the ~295 at which
 // the tensor cores outrun the 3.35 TB/s, so the least time is set by the
-// bytes; this version computes on CUDA cores, where the operations
-// take longer than the bytes.
+// bytes.
 //
-// Design: one block per (KV head, tile of QT chunk rows, request).  The
-// TPU kernel walks page pairs as a sequential grid dimension with a VMEM
-// accumulator; here a loop inside the block walks tiles of pages from
-// page 0 to the last page that the tile's causal limit allows
+// Two bodies, picked by dtype (a dispatch, not a fallback):
+// - bf16: paged_prefill_kernel_tc, on Hopper's tensor cores through the
+//   shared tile of attn_tile.cuh (wgmma QK^T and PV, the online softmax
+//   in registers; its header says how).  It replaces the CUDA-core bf16
+//   body for bf16, whose products, not its loads, set its time (2.6x
+//   slower than SDPA).  On the tensor cores the products of a 64-key
+//   tile take less time than its copy, so the design's answer to the
+//   bytes is the cp.async ring: the next K/V tiles are in flight while a
+//   tile is computed (three 16 KB K/V stages at D 64).  The page ids are
+//   staged once in shared memory; key rows are gathered row by row
+//   through them.  Takes D a multiple of 16, at most 256.  On an H100
+//   80GB HBM3 at 700 W it runs a mixed step's 28 launches (chunks of 64
+//   and 37) in 0.51 ms of device time, against 3.48 ms for the CUDA-core
+//   body (chip_smoke.py's profile phase).
+// - float32: paged_prefill_kernel below, the CUDA-core body: CUDA cores
+//   in float32 (TF32 would miss the float32 tolerance).
+//
+// Common to both: one block per (KV head, tile of QT chunk rows,
+// request).  The TPU kernel walks page pairs as a sequential grid
+// dimension with a VMEM accumulator; here a loop inside the block walks
+// key tiles from 0 to the last key that the tile's causal limit allows
 // (ctx + last valid row), so pages past the diagonal or past the live
 // context are never read, and a tile of padding rows only writes zeros.
 // GQA is folded into the rows, as on the TPU: the G query heads of the
-// KV group share each staged K/V tile (R = G * QT rows).  K is staged
-// with a padded row stride (D + 1) so that the threads of a warp, which
-// take consecutive keys, hit distinct shared-memory banks.  The online
-// softmax runs in float32 in shared memory.  K/V tiles are staged with
-// 16-byte loads that are all in flight together (stage_kv_tile).  The
-// score and PV products run on CUDA cores in 4 x 4 register micro-tiles,
-// so that each value read from shared memory feeds four FMAs: on the
-// first version, which read two shared-memory values per FMA, those
-// loops and not the loads set the kernel's time.  No tensor cores
-// (wgmma) or TMA yet.
+// KV group share each staged K/V tile (R = G * QT rows).
+//
+// The float32 body: K is staged with a padded row stride (D + 1) so that
+// the threads of a warp, which take consecutive keys, hit distinct
+// shared-memory banks.  The online softmax runs in float32 in shared
+// memory.  K/V tiles are staged with 16-byte loads that are all in
+// flight together (stage_kv_tile).  The score and PV products run on
+// CUDA cores in 4 x 4 register micro-tiles, so that each value read from
+// shared memory feeds four FMAs: on the first version, which read two
+// shared-memory values per FMA, those loops and not the loads set the
+// kernel's time.
+//
+// What is left for the bf16 body: TMA copies, a producer warp, pingpong
+// between two warpgroups, and a split over keys: at the serving shapes
+// the grid is 32 blocks on 132 SMs, each walking at most 12 key tiles.
+#include "attn_tile.cuh"
 #include "common.cuh"
 
 namespace {
@@ -253,11 +275,89 @@ int launch(const void* q, const void* k, const void* v, const void* bt,
   return (int)cudaGetLastError();
 }
 
+// The bf16 body on the tensor cores (attn_tile.cuh).  Rows, keys and
+// visibility as paged_prefill_kernel's; the query tiles are ordered
+// by zigzag_tile (attn_tile.cuh).
+template <int DP, int NK, int STAGES>
+__global__ void __launch_bounds__(kTileThreads)
+    paged_prefill_kernel_tc(const bf16* __restrict__ q,
+                            const bf16* __restrict__ k_pages,
+                            const bf16* __restrict__ v_pages,
+                            const int* __restrict__ block_tables,
+                            const int* __restrict__ ctx_lens,
+                            const int* __restrict__ chunk_lens,
+                            bf16* __restrict__ out, int S, int H, int Hkv,
+                            int D, int page, int NB, int QT, float scale) {
+  const int hk = blockIdx.x, b = blockIdx.z;
+  const int q0 = zigzag_tile(blockIdx.y, gridDim.y) * QT;
+  const int G = H / Hkv, R = G * QT;
+  const int ctx = ctx_lens[b];
+  const int total = ctx + chunk_lens[b];
+  const int nrows = min(QT, S - q0);  // rows of this tile that exist
+  const int nvalid = max(0, min(nrows, chunk_lens[b] - q0));
+  // keys past the tile's last valid query position are never needed
+  const int klast = nvalid > 0 ? ctx + q0 + nvalid - 1 : -1;
+  const int npages = min((klast + page) / page, NB);
+  // every written row sees keys 0 .. ctx + q0, unless some are padding
+  const int kfull_hi = nvalid == nrows ? min(ctx + q0, total - 1) : -1;
+  extern __shared__ uint8_t tc_smem[];
+  int* pid_s =
+      reinterpret_cast<int*>(tc_smem + AttnTile<DP, NK, STAGES>::kBytes);
+  for (int i = threadIdx.x; i < npages; i += kTileThreads)
+    pid_s[i] = block_tables[(size_t)b * NB + i];
+  __syncthreads();
+  // element offset of row r (= g * QT + j) in q and out, or -1
+  auto row = [&](int r) -> long long {
+    const int g = r / QT, j = r - g * QT;
+    if (r >= R || j >= nrows) return -1;
+    return (((long long)b * S + q0 + j) * H + (long long)hk * G + g) * D;
+  };
+  attn_tile<DP, NK, STAGES>(
+      tc_smem, q, k_pages, v_pages, out, D, scale, 0, klast, 0, kfull_hi,
+      row,
+      [&](int kpos) -> long long {
+        const int i = kpos / page;
+        if (kpos > klast || i >= npages) return -1;
+        return (((long long)pid_s[i] * page + kpos - i * page) * Hkv + hk) *
+               D;
+      },
+      [&](int r, int kpos) {
+        const int j = r % QT;
+        return r < R && j < nvalid && kpos <= ctx + q0 + j && kpos < total;
+      },
+      row);
+}
+
+template <int DP, int NK, int STAGES>
+struct LaunchTc {
+  static int run(const void* q, const void* k, const void* v,
+                 const void* bt, const void* ctx, const void* chunk,
+                 void* out, int B, int S, int H, int Hkv, int D, int page,
+                 int NB, float scale, cudaStream_t stream) {
+    const size_t smem =
+        AttnTile<DP, NK, STAGES>::kBytes + sizeof(int) * (size_t)NB;
+    if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(
+        paged_prefill_kernel_tc<DP, NK, STAGES>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const int qt = kTileRows / (H / Hkv);
+    const dim3 grid(Hkv, (S + qt - 1) / qt, B);
+    paged_prefill_kernel_tc<DP, NK, STAGES>
+        <<<grid, kTileThreads, smem, stream>>>(
+            (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)bt,
+            (const int*)ctx, (const int*)chunk, (bf16*)out, S, H, Hkv, D,
+            page, NB, qt, scale);
+    return (int)cudaGetLastError();
+  }
+};
+
 }  // namespace
 
 // q (B, S, H, D); k_pages, v_pages (P, page, Hkv, D); block_tables
 // (B, NB) int32; ctx_lens, chunk_lens (B,) int32; out (B, S, H, D).  All
-// contiguous, on the device; D * sizeof(dtype) a multiple of 16.  dtype:
+// contiguous, on the device; D * sizeof(dtype) a multiple of 16, and for
+// bfloat16 D a multiple of 16 at most 256.  dtype:
 // 0 = float32, 1 = bfloat16.  Returns a cudaError_t.
 extern "C" int paged_prefill_launch(const void* q, const void* k_pages,
                                     const void* v_pages,
@@ -273,8 +373,10 @@ extern "C" int paged_prefill_launch(const void* q, const void* k_pages,
     return launch<float>(q, k_pages, v_pages, block_tables, ctx_lens,
                          chunk_lens, out, B, S, H, Hkv, D, page, NB, scale, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k_pages, v_pages, block_tables, ctx_lens,
-                                 chunk_lens, out, B, S, H, Hkv, D, page, NB,
-                                 scale, s);
+    return tile_inputs_ok(q, k_pages, v_pages, out, D, H, Hkv)
+               ? launch_tile<LaunchTc>(D, q, k_pages, v_pages, block_tables,
+                                       ctx_lens, chunk_lens, out, B, S, H,
+                                       Hkv, D, page, NB, scale, s)
+               : (int)cudaErrorInvalidValue;
   return (int)cudaErrorInvalidValue;
 }

@@ -44,6 +44,7 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     common.check_dense(q, k, v)
+    common.check_tile_head_dim(q)
     common.check_index(lengths, (b,), "lengths")
     out = torch.empty_like(q)
     if b == 0 or sq == 0:       # nothing to launch, nothing to count

@@ -44,6 +44,7 @@ def paged_prefill(q: torch.Tensor, k_pages: torch.Tensor,
     _, page, hkv, _ = k_pages.shape
     nb = block_tables.shape[1]
     common.check_inputs(q, k_pages, v_pages, h)
+    common.check_tile_head_dim(q)
     common.check_index(block_tables, (b, nb), "block_tables")
     common.check_index(ctx_lens, (b,), "ctx_lens")
     common.check_index(chunk_lens, (b,), "chunk_lens")

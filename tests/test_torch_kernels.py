@@ -260,3 +260,22 @@ def test_cpu_flash_wrapper_takes_plain_version_without_launching():
     assert fp_mod.launches == before
     with pytest.raises(ValueError, match="window"):
         fp_mod.flash_prefill(*args, window=-1)
+
+
+@pytest.mark.parametrize("d,dtype,accepted", [
+    (48, "bfloat16", True), (40, "bfloat16", False),
+    (320, "bfloat16", False), (32, "float32", True)],
+    ids=["bf16_d48", "bf16_d40", "bf16_d320", "f32_d32"])
+def test_tile_head_dim_rule(d, dtype, accepted):
+    """The bf16 prefill bodies run on the tensor cores in steps of 16
+    along D, at most 256 wide; the check runs before a launch and is
+    pure Python, so it is held here on CPU tensors."""
+    from repro_torch.kernels import common
+    q = torch.zeros(1, 4, 4, d, dtype=TORCH_DTYPES[dtype])
+    k = torch.zeros(1, 4, 2, d, dtype=TORCH_DTYPES[dtype])
+    common.check_dense(q, k, k.clone())
+    if accepted:
+        common.check_tile_head_dim(q)
+    else:
+        with pytest.raises(ValueError, match="multiple of 16"):
+            common.check_tile_head_dim(q)
