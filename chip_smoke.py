@@ -13,7 +13,11 @@ Phases, each printing one JSON line:
             ``src/repro_torch/kernels/csrc`` (one nvcc each, in parallel);
 3. kernels  every kernel against its plain PyTorch version on the card,
             over the JAX package's test cases and the full-width shapes
-            (gemma3-4b's D = 256 included);
+            (gemma3-4b's D = 256 included); ``paged_attention`` also
+            where its split over pages engages (long contexts, rows of
+            length 0 and 1, split boundaries, G 1 to 16, D 96 and 256,
+            pages 8 and 64), in float32 also against the plain mirror of
+            the split, and called twice for identical bits;
 4. step     each full-width qwen3-0.6b step function (mixed_step,
             prefill_step, decode_batch) in float32 with the kernels and
             again with the plain versions: logits and pools must agree;
@@ -31,8 +35,10 @@ Phases, each printing one JSON line:
             with the same tokens both times, ``flash_prefill`` launched
             exactly 34 times per prefill and the paged kernels never;
 8. timing   each kernel, its plain version, the library call and the
-            least time the card could take, at the serving shapes; each
-            kernel's device time alone from a profiler trace;
+            least time the card could take, at the serving shapes, and
+            ``paged_attention`` at long contexts and glm4-9b's group
+            shape; each kernel's device time a call from a profiler
+            trace;
 9. profile  host wall and device time, by kind of kernel
             (torch.profiler), of one full-width bf16 paged mixed_step,
             one gemma3-4b slot prefill of 2048 tokens and one 4-slot
@@ -160,9 +166,10 @@ def check_kernels(torch, ops_mod):
            "paged_prefill": (ops_mod.paged_prefill, ref.paged_prefill_ref),
            "flash_prefill": (ops_mod.flash_attention, ref.flash_prefill_ref)}
 
-    def compare(kernel, args, dtype, tol_idx, label, extra=None, **kw):
+    def compare(kernel, args, dtype, tol_idx, label, extra=None,
+                plain_fn=None, **kw):
         out = fns[kernel][0](*args, **kw)
-        plain = fns[kernel][1](*args, **kw)
+        plain = (plain_fn or fns[kernel][1])(*args, **kw)
         torch.cuda.synchronize()
         tol = TOL[name[dtype]][tol_idx]
         err = (out.float() - plain.float()).abs().max().item()
@@ -305,6 +312,62 @@ def check_kernels(torch, ops_mod):
                             ok=out.shape[0] == 0
                             and (pa.launches, pp.launches,
                                  fp.launches) == before))
+    # paged_attention where its split over pages engages, on a generator
+    # of their own: each case against the plain version and, in float32,
+    # against the plain mirror of the split at the planner's
+    # pages_per_split
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(10)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def split_case(b, h, hkv, d, page, nb, dt, label, lengths=None,
+                   extra=None):
+        args = decode_case(torch, gen, b, h, hkv, d, page, nb, dt, lengths)
+        pps, n_splits = pa.split_plan(b, hkv, nb, page, sms)
+        label = (f"{label}: B{b} H{h} Hkv{hkv} D{d} page{page} NB{nb}, "
+                 f"split {pps} pages x {n_splits}")
+        compare("paged_attention", args, dt, 0, label, extra=extra)
+        if dt == f32:
+            compare("paged_attention", args, dt, 0, label + " vs split ref",
+                    extra=extra, plain_fn=lambda *a: (
+                        ref.paged_attention_split_ref(
+                            *a, pages_per_split=pps)))
+        return args
+
+    def zero_rows(rows):
+        return lambda o: bool((o[rows] == 0).all()
+                              and (o[[i for i in range(o.shape[0])
+                                      if i not in rows]] != 0).any())
+
+    long_args = {}
+    for dt in (f32, bf16):
+        split_case(1, 16, 8, 64, 16, 256, dt, "one long request", [4096])
+        long_args[dt] = split_case(
+            8, 16, 8, 64, 16, 256, dt, "long context",
+            torch.randint(3072, 4097, (8,), generator=gen, device="cuda"))
+        split_case(6, 16, 8, 64, 16, 64, dt, "rows of 0, 1 and the table",
+                   [0, 1, 1024, 0, 1, 1024], extra=zero_rows([0, 3]))
+        span = pa.split_plan(5, 8, 64, 16, sms)[0] * 16
+        split_case(5, 16, 8, 64, 16, 64, dt, "lengths at split boundaries",
+                   [span - 1, span, span + 1, 2 * span, 2 * span + 1])
+        split_case(4, 32, 2, 128, 16, 64, dt, "G 16 (glm4-9b)")
+        split_case(4, 8, 8, 128, 16, 64, dt, "G 1")
+        split_case(4, 12, 2, 128, 16, 64, dt, "G 6 (qwen2-1.5b)")
+        split_case(4, 25, 5, 64, 16, 64, dt, "G 5 (hymba-1.5b)")
+        split_case(3, 8, 4, 96, 16, 64, dt, "D 96")
+        split_case(2, 8, 4, 256, 8, 128, dt, "D 256 page 8")
+        split_case(2, 8, 4, 256, 64, 32, dt, "D 256 page 64")
+    # the combine merges the splits in split order, whichever block comes
+    # last: a repeated call gives the same bits
+    for dt, args in long_args.items():
+        outs = [ops_mod.paged_attention(*args) for _ in range(2)]
+        torch.cuda.synchronize()
+        results.append(dict(kernel="paged_attention",
+                            case="long context, called twice: bit for bit",
+                            dtype=name[dt], max_abs_err=(
+                                outs[0].float() - outs[1].float()).abs()
+                            .max().item(), tol=0.0,
+                            ok=bool(torch.equal(outs[0], outs[1]))))
     return results
 
 
@@ -609,27 +672,85 @@ def time_ms(torch, fn, iters=50, warmup=5):
 
 
 def kernel_device_ms(torch, fn, name, iters=20):
-    """The mean device time of the ``<name>_kernel`` launches that ``fn``
-    makes, from a CUDA-only ``torch.profiler`` trace of ``iters`` calls:
-    the kernel alone, where ``time_ms`` of a small kernel also counts the
-    host's launch overhead between calls."""
+    """The device time of one call of ``fn``: the summed time of every
+    launch of the kernel ``name`` (any device function whose name holds
+    ``name`` and ends in ``_kernel``, so a second kernel of the same call
+    counts too) in a CUDA-only ``torch.profiler`` trace of ``iters``
+    calls, divided by the calls the trace holds (the launches of
+    ``<name>_kernel`` itself: a trace has been seen to drop events, and
+    now and then to hold none, when it is taken again).  The kernel
+    alone, where ``time_ms`` of a small kernel also counts the host's
+    launch overhead between calls."""
+    import re
     from torch.profiler import ProfilerActivity, profile
+    pattern = re.compile(rf"{name}\w*_kernel")
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and f"{name}_kernel" in e.name.lower()]
-    return sum(us) / len(us) / 1e3 if us else "not measured"
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and pattern.search(e.name.lower())]
+        calls = sum(f"{name}_kernel" in e.name.lower() for e in events)
+        if calls:
+            return sum(e.time_range.elapsed_us() for e in events) / calls \
+                / 1e3
+    return "not measured"
+
+
+def decode_row(torch, gen, launches, h, hkv, d, page, nb, lengths,
+               num_pages, **extra):
+    """One ``paged_attention`` timing row, bf16: the kernel, its plain
+    version and SDPA over K/V gathered beforehand, on ``lengths`` rows
+    of a ``num_pages`` pool with block tables ``nb`` wide; the planner's
+    split beside it."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_attention as pa
+    dt, esize = torch.bfloat16, 2
+    b = len(lengths)
+    args = decode_case(torch, gen, b, h, hkv, d, page, nb, dt,
+                       lengths=lengths, num_pages=num_pages)
+    q, kp, vp, bt, ln = args
+    out = ops.paged_attention(*args)
+    plain = ref.paged_attention_ref(*args)
+    err = (out.float() - plain.float()).abs().max().item()
+    k = kp[bt.long()].reshape(b, nb * page, hkv, d).transpose(1, 2) \
+        .contiguous()
+    v = vp[bt.long()].reshape(b, nb * page, hkv, d).transpose(1, 2) \
+        .contiguous()
+    mask = (torch.arange(nb * page, device="cuda")[None] < ln[:, None])[
+        :, None, None, :]
+    qs = q[:, :, None, :]                                 # (B, H, 1, D)
+    live = int(ln.sum())
+    nbytes = (2 * live * hkv * d * esize + 2 * q.numel() * esize
+              + bt.numel() * 4 + ln.numel() * 4)
+    flops = 4 * live * h * d
+    pps, n_splits = pa.split_plan(b, hkv, nb, page, torch.cuda
+                                  .get_device_properties(0)
+                                  .multi_processor_count)
+    return kernel_line(
+        "paged_attention", launches, err,
+        time_ms(torch, lambda: ops.paged_attention(*args)),
+        time_ms(torch, lambda: ref.paged_attention_ref(*args)),
+        time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, k, v, attn_mask=mask, enable_gqa=True)),
+        nbytes, flops, "bfloat16", device_ms=kernel_device_ms(
+            torch, lambda: ops.paged_attention(*args), "paged_attention"),
+        pages_per_split=pps, n_splits=n_splits,
+        case=f"B{b} H{h} Hkv{hkv} D{d} page{page} NB{nb} lengths "
+        f"{int(ln.min())}-{int(ln.max())} bf16", **extra)
 
 
 def timing(torch, cfg, launches):
     """Phase 8: kernel, plain and library times and the bound, at the
     serving shapes (bf16, H 16, Hkv 8, D 64, page 16, a pool of 1025
-    pages, block tables 52 wide, 8 decode rows, 2 chunks of 64)."""
+    pages, block tables 52 wide, 8 decode rows, 2 chunks of 64); then
+    ``paged_attention`` at long contexts and at glm4-9b's group shape,
+    on lines of their own."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     dt, page, h, hkv, d, nb = torch.bfloat16, 16, cfg.n_heads, \
@@ -647,28 +768,8 @@ def timing(torch, cfg, launches):
 
     # decode: 8 rows with serving lengths (prompt 128..768 + 32 new)
     lengths = torch.randint(129, 800, (8,), generator=gen, device="cuda")
-    args = decode_case(torch, gen, 8, h, hkv, d, page, nb, dt,
-                       lengths=lengths, num_pages=1025)
-    q, kp, vp, bt, ln = args
-    out = ops.paged_attention(*args)
-    plain = ref.paged_attention_ref(*args)
-    err = (out.float() - plain.float()).abs().max().item()
-    k, v = sdpa_inputs(q, kp, vp, bt)
-    mask = (torch.arange(nb * page, device="cuda")[None] < ln[:, None])[
-        :, None, None, :]
-    qs = q[:, :, None, :]                                 # (B, H, 1, D)
-    live = int(ln.sum())
-    nbytes = (2 * live * hkv * d * esize + 2 * q.numel() * esize
-              + bt.numel() * 4 + ln.numel() * 4)
-    flops = 4 * live * h * d
-    lines.append(kernel_line(
-        "paged_attention", launches, err,
-        time_ms(torch, lambda: ops.paged_attention(*args)),
-        time_ms(torch, lambda: ref.paged_attention_ref(*args)),
-        time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qs, k, v, attn_mask=mask, enable_gqa=True)),
-        nbytes, flops, "bfloat16", device_ms=kernel_device_ms(
-            torch, lambda: ops.paged_attention(*args), "paged_attention")))
+    lines.append(decode_row(torch, gen, launches, h, hkv, d, page, nb,
+                            lengths, 1025))
 
     # prefill: 2 chunks of 64 at serving contexts
     s = 64
@@ -700,6 +801,22 @@ def timing(torch, cfg, launches):
             qs, k, v, attn_mask=pmask, enable_gqa=True)),
         nbytes, flops, "bfloat16", device_ms=kernel_device_ms(
             torch, lambda: ops.paged_prefill(*pargs), "paged_prefill")))
+
+    # paged_attention where the split matters, on a generator of their
+    # own: 8 rows at 3072-4096 tokens and one 4096-token row (block
+    # tables 256 wide), and glm4-9b's group (H 32, Hkv 2, D 128, G 16)
+    # at the serving lengths
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    decode_row(torch, gen, launches, h, hkv, d, page, 256,
+               torch.randint(3072, 4097, (8,), generator=gen,
+                             device="cuda"), 8 * 256 + 3,
+               row="long context")
+    decode_row(torch, gen, launches, h, hkv, d, page, 256, [4096], 259,
+               row="single long request")
+    decode_row(torch, gen, launches, 32, 2, 128, page, nb,
+               torch.randint(129, 800, (8,), generator=gen, device="cuda"),
+               1025, row="glm4-9b group shape")
     return lines
 
 

@@ -34,6 +34,31 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// 2^x on the special-function unit, flushing denormals (no range fix-up)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16-byte cp.async copy from device to shared memory (through L2 only);
+// zero-filled if !live.  Copies land once a commit group that holds them
+// is waited for.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(live ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 // Stage the K and V rows of `tile` tokens into shared memory as float:
 // token tt lands at k_dst[tt * k_stride] and v_dst[tt * D].
 // row_offset(tt) gives the element offset of token tt's D-vector in

@@ -41,6 +41,48 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     return out.reshape(b, h, d).to(q.dtype)
 
 
+def paged_attention_split_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                              v_pages: torch.Tensor,
+                              block_tables: torch.Tensor,
+                              lengths: torch.Tensor,
+                              pages_per_split: int) -> torch.Tensor:
+    """The arithmetic of the split ``paged_attention`` kernel, in plain
+    float32: each split of ``pages_per_split`` pages gives its running
+    max ``m``, sum ``l`` and accumulator over its live keys; the splits
+    merge in split order, weighted by ``exp(m - max m)``; a length-0 row
+    gives zeros.  Shapes as ``paged_attention_ref``, which it equals up
+    to rounding.  A yardstick for the kernel's split; the main path
+    never calls it."""
+    b, h, d = q.shape
+    _, page, hkv, _ = k_pages.shape
+    nb = block_tables.shape[1]
+    g = h // hkv
+    bt = block_tables.long()
+    k = k_pages[bt].reshape(b, nb * page, hkv, d).float()
+    v = v_pages[bt].reshape(b, nb * page, hkv, d).float()
+    qf = (q.float() * d ** -0.5).reshape(b, hkv, g, d)
+    logits = torch.einsum("bhgd,bkhd->bhgk", qf, k)
+    valid = torch.arange(nb * page, device=q.device)[None] < lengths[:, None]
+    logits = logits.masked_fill(~valid[:, None, None, :], NEG_INF)
+    span = pages_per_split * page
+    parts = []
+    for lo in range(0, nb * page, span):
+        lg, live = logits[..., lo:lo + span], valid[:, lo:lo + span]
+        m = lg.max(-1).values                                   # (B,Hkv,G)
+        p = torch.exp(lg - m[..., None]) * live[:, None, None, :]
+        parts.append((m, p.sum(-1),
+                      torch.einsum("bhgk,bkhd->bhgd", p, v[:, lo:lo + span])))
+    top = torch.stack([m for m, _, _ in parts]).max(0).values
+    den = torch.zeros_like(top)
+    num = torch.zeros_like(parts[0][2])
+    for m, l, acc in parts:                                     # split order
+        w = torch.exp(m - top)
+        den = den + l * w
+        num = num + acc * w[..., None]
+    out = num / den.clamp(min=1e-30)[..., None]
+    return out.reshape(b, h, d).to(q.dtype)
+
+
 def paged_prefill_ref(q: torch.Tensor, k_pages: torch.Tensor,
                       v_pages: torch.Tensor, block_tables: torch.Tensor,
                       ctx_lens: torch.Tensor,

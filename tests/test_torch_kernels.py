@@ -125,6 +125,61 @@ def test_paged_attention_short_rows_match_jax(lengths):
         assert torch.all(out[0] == 0)
 
 
+SPLIT_NB = 6
+SPLIT_CASES = [
+    # (G, page, pages_per_split): G 1, 2 and 8, page 8 and 16, a split
+    # of one page, of three, and of the whole table
+    (1, 8, 1), (1, 16, 3), (1, 8, SPLIT_NB),
+    (2, 16, 1), (2, 8, 3), (2, 16, SPLIT_NB),
+    (8, 8, 1), (8, 16, 3), (8, 8, SPLIT_NB),
+]
+
+
+@pytest.mark.parametrize("g,page,pps", SPLIT_CASES)
+def test_paged_attention_split_ref_matches_jax(g, page, pps):
+    """The plain mirror of the split kernel (per-split max, sum and
+    accumulator, merged in split order) against the Pallas kernel and
+    the port's one-softmax plain version, over rows of length 0, 1, at a
+    split boundary, one past it and the whole table."""
+    rng = np.random.default_rng(20)
+    span, full = pps * page, SPLIT_NB * page
+    lengths = [0, 1, span, min(span + 1, full), full]
+    args = _decode_inputs(rng, len(lengths), 2 * g, 2, 32, page, SPLIT_NB,
+                          "float32", lengths)
+    tq = [t for _, t in args]
+    out = ref.paged_attention_split_ref(*tq, pages_per_split=pps)
+    _close(out, jpaged(*(j for j, _ in args)), 2e-5)
+    torch.testing.assert_close(out, ref.paged_attention_ref(*tq),
+                               atol=2e-5, rtol=2e-5)
+    assert torch.all(out[0] == 0)
+
+
+@pytest.mark.parametrize("b,hkv,nb,page,want", [
+    (8, 8, 52, 16, (11, 5)),      # the serving shapes: 64 blocks -> 320
+    (1, 8, 256, 16, (8, 32)),     # one long request: 8 blocks -> 256
+    (8, 2, 52, 16, (4, 13)),      # glm4-9b's group shape
+    (64, 8, 52, 16, (52, 1)),     # 512 blocks fill the card
+    (1, 1, 4, 16, (4, 1)),        # a table of 64 tokens: too narrow
+    (2, 2, 4, 64, (1, 4)),        # 64-token pages: a page a split
+    (3, 5, 7, 8, (7, 1)),         # 56 tokens, under one split's least
+    (1, 1, 1000, 16, (8, 125)),   # at most MAX_SPLITS splits
+])
+def test_split_plan(b, hkv, nb, page, want):
+    """The host's split: pure, deterministic, covering the table with
+    no empty split, one split where the card is full or the table
+    narrow, else at most a few waves of blocks of real work."""
+    plan = pa_mod.split_plan(b, hkv, nb, page, num_sms=132)
+    assert plan == want == pa_mod.split_plan(b, hkv, nb, page, num_sms=132)
+    pps, n = plan
+    assert n * pps >= nb and (n - 1) * pps < nb and n <= pa_mod.MAX_SPLITS
+    if b * hkv >= 132 or nb * page <= pa_mod.MIN_SPLIT_TOKENS:
+        assert n == 1
+    else:
+        assert pps * page >= pa_mod.MIN_SPLIT_TOKENS
+        assert b * hkv * n <= 3 * 132 or pps * page == \
+            pa_mod.MIN_SPLIT_TOKENS
+
+
 @pytest.mark.parametrize("b,h,hkv,d,page", PREFILL_CASES)
 def test_paged_prefill_matches_jax(b, h, hkv, d, page):
     rng = np.random.default_rng(7)
