@@ -25,24 +25,36 @@ Phases, each printing one JSON line:
             in bfloat16, twice on fresh engines: every request finishes,
             no page leaks, the same tokens both times, and each kernel
             launched exactly 28 times per step that needs it;
-6. slot step  full-width gemma3-4b in float32: ``prefill`` of a
+6. lora     a float32 ``mixed_step`` with a bank of 4 adapters, kernels
+            against plain versions and LoRA on against off; then 16
+            greedy bf16 requests over the base and 10 adapters through a
+            bank of 7 (evicting to the host tier and reloading), twice,
+            with the checks of ``serve``, and 3 of them alone on fresh
+            engines with the same tokens; adapter load times;
+7. tiers    bf16: swap preemption through the host tier, a prefix served
+            from the host tier, the SSD tier with promotion, P/D handoff
+            over the distributed pool on the raw and the int8 wire, each
+            token-identical to the plain run (the int8 wire: finishes, at
+            the compressed size); one page's payload off the card and
+            back, timed;
+8. slot step  full-width gemma3-4b in float32: ``prefill`` of a
             1500-token prompt and 4 ``decode_step``s, with the
             ``flash_prefill`` kernel and with its plain version: logits
             and caches must agree;
-7. slot serve  8 greedy requests (prompts 1100-3000 tokens, all longer
+9. slot serve  8 greedy requests (prompts 1100-3000 tokens, all longer
             than the 1024 window) through ``SlotEngine`` at full width
             in bfloat16, twice on fresh engines: every request finishes
             with the same tokens both times, ``flash_prefill`` launched
             exactly 34 times per prefill and the paged kernels never;
-8. timing   each kernel, its plain version, the library call and the
+10. timing  each kernel, its plain version, the library call and the
             least time the card could take, at the serving shapes, and
             ``paged_attention`` at long contexts and glm4-9b's group
             shape; each kernel's device time a call from a profiler
             trace;
-9. profile  host wall and device time, by kind of kernel
-            (torch.profiler), of one full-width bf16 paged mixed_step,
-            one gemma3-4b slot prefill of 2048 tokens and one 4-slot
-            decode step.
+11. profile host wall and device time, by kind of kernel
+            (torch.profiler), of one full-width bf16 paged mixed_step
+            (without and with 4 adapters), one gemma3-4b slot prefill of
+            2048 tokens and one 4-slot decode step.
 
 Then the line ``{"kernels": [...]}``, the nvidia-smi line, and as the
 last line ``{"ok": true, "device": {...}}``.  ``--only kernels,timing``
@@ -83,6 +95,14 @@ SERVE_ECFG = dict(dtype="bfloat16", page_size=16, num_pages=1024,
                   max_batch=8, max_pages_per_seq=64, chunk_size=64,
                   max_prefills=2)
 N_REQUESTS, MAX_NEW, PROMPT_RANGE = 16, 32, (128, 768)
+# the multi-LoRA serve: the serving configuration with a bank of 7
+# adapters (slot 0 is the base) and a host tier of 32
+LORA_ECFG = dict(SERVE_ECFG, max_adapters=8, lora_rank=8,
+                 host_adapter_slots=32)
+LORA_ADAPTERS, LORA_RANK, LORA_MAX_NEW = 4, 8, 16
+# the KV tier checks: the serving configuration, 16 new tokens
+TIER_ECFG = dict(SERVE_ECFG)
+TIER_MAX_NEW = 16
 # the slot serving configuration (gemma3-4b, full width)
 SLOT_ECFG = dict(max_slots=4, max_len=4096, dtype="bfloat16")
 SLOT_REQUESTS, SLOT_MAX_NEW, SLOT_PROMPTS = 8, 32, (1100, 3000)
@@ -450,11 +470,11 @@ def full_width_step(torch, cfg):
 
 
 # ------------------------------------------------------------ serving
-def serve_once(torch, cfg, prompts, pa, pp):
-    from repro_torch.engine import (EngineConfig, InferenceEngine, Request,
-                                    SamplingParams)
-    ecfg = EngineConfig(**SERVE_ECFG)
-    eng = InferenceEngine(cfg, ecfg, seed=0, device="cuda")
+def counted(torch, eng, pa, pp, drive):
+    """Run ``drive()`` on ``eng`` with the paged kernels' counts set to 0
+    just before and read just after; returns the steps by mode, the
+    launches, and the launches expected: one a layer for each step that
+    needs the kernel."""
     modes = {"decode": 0, "prefill": 0, "mixed": 0, "idle": 0}
     schedule = eng.sched.schedule
 
@@ -464,22 +484,41 @@ def serve_once(torch, cfg, prompts, pa, pp):
         return out
 
     eng.sched.schedule = recording_schedule
-    reqs = [Request(prompt_tokens=list(p),
-                    sampling=SamplingParams(max_new_tokens=MAX_NEW))
-            for p in prompts]
     torch.cuda.synchronize()
     pa.launches = pp.launches = 0
-    t0 = time.perf_counter()
-    # the first request arrives alone (a lone prefill step), the rest
-    # while it is prefilling
-    eng.submit(reqs[0])
-    eng.step()
-    for r in reqs[1:]:
-        eng.submit(r)
-    eng.run_until_idle()
+    drive()
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     launches = {"paged_attention": pa.launches, "paged_prefill": pp.launches}
+    eng.sched.schedule = schedule
+    n = eng.cfg.n_layers
+    want = {"paged_attention": n * (modes["decode"] + modes["mixed"]),
+            "paged_prefill": n * (modes["prefill"] + modes["mixed"])}
+    return modes, launches, want
+
+
+def greedy(Request, SamplingParams, prompt, n, **kw):
+    return Request(prompt_tokens=list(prompt),
+                   sampling=SamplingParams(max_new_tokens=n), **kw)
+
+
+def serve_once(torch, cfg, prompts, pa, pp):
+    from repro_torch.engine import (EngineConfig, InferenceEngine, Request,
+                                    SamplingParams)
+    ecfg = EngineConfig(**SERVE_ECFG)
+    eng = InferenceEngine(cfg, ecfg, seed=0, device="cuda")
+    reqs = [greedy(Request, SamplingParams, p, MAX_NEW) for p in prompts]
+
+    def drive():
+        # the first request arrives alone (a lone prefill step), the
+        # rest while it is prefilling
+        eng.submit(reqs[0])
+        eng.step()
+        for r in reqs[1:]:
+            eng.submit(r)
+        eng.run_until_idle()
+    t0 = time.perf_counter()
+    modes, launches, want = counted(torch, eng, pa, pp, drive)
+    wall = time.perf_counter() - t0
     finished = sum(r.state.name == "FINISHED"
                    and len(r.output_tokens) == MAX_NEW for r in reqs)
     ttft = [r.ttft for r in reqs]
@@ -487,7 +526,7 @@ def serve_once(torch, cfg, prompts, pa, pp):
     tokens = [list(r.output_tokens) for r in reqs]
     del eng
     torch.cuda.empty_cache()
-    return dict(tokens=tokens, modes=modes, launches=launches,
+    return dict(tokens=tokens, modes=modes, launches=launches, want=want,
                 finished=finished, wall_s=wall, ttft=ttft,
                 free_pages=free, num_pages=total)
 
@@ -502,9 +541,7 @@ def serve(torch, cfg, pa, pp):
     runs = [serve_once(torch, cfg, prompts, pa, pp) for _ in range(2)]
     smi = nvidia_smi()
     for i, run in enumerate(runs):
-        m = run["modes"]
-        want = {"paged_attention": cfg.n_layers * (m["decode"] + m["mixed"]),
-                "paged_prefill": cfg.n_layers * (m["prefill"] + m["mixed"])}
+        m, want = run["modes"], run["want"]
         gen_tokens = sum(len(t) for t in run["tokens"])
         ok = (run["finished"] == N_REQUESTS
               and run["free_pages"] == run["num_pages"]
@@ -526,9 +563,389 @@ def serve(torch, cfg, pa, pp):
     return runs[0]["launches"]
 
 
+# ------------------------------------------------------------ LoRA, tiers
+def lora_step(torch, cfg):
+    """Phase 6 (a): one float32 ``mixed_step`` at full width with a
+    bank of 4 random adapters (decode rows and chunks on different
+    adapters, some rows on the base model), with the kernels and with the
+    plain versions: logits and pools must agree, and the adapters must
+    change the logits."""
+    from repro_torch.engine import paged_model as PM
+    params, pool, a, page = step_inputs(torch, cfg, torch.float32)
+    bank = PM.init_lora(cfg, LORA_ADAPTERS + 1, LORA_RANK, torch.float32,
+                        "cuda")
+    for i in range(1, LORA_ADAPTERS + 1):
+        for k, w in PM.make_adapter(cfg, LORA_RANK, seed=100 + i).items():
+            bank[k][i].copy_(w)
+    ids = dict(dec_adapter_ids=torch.tensor(
+        [1, 2, 0, 3, 4, 0, 1, 0], dtype=torch.int32, device="cuda"),
+        pre_adapter_ids=torch.tensor([3, 0], dtype=torch.int32,
+                                     device="cuda"))
+    outs = {}
+    for label, impl, lora in (("kernel", "kernel", bank), ("ref", "ref", bank),
+                              ("off", "kernel", None)):
+        p = PM.PagePool(pool.k.clone(), pool.v.clone())
+        d, pr, _ = PM.mixed_step(params, p, **a, lora=lora,
+                                 **(ids if lora is not None else {}),
+                                 cfg=cfg, page_size=page, impl=impl)
+        outs[label] = (torch.cat([d, pr]).float(), p)
+    torch.cuda.synchronize()
+    (lk, pk), (lr, prf), (lo, _) = outs["kernel"], outs["ref"], outs["off"]
+    scale = lr.abs().max().item()
+    err = (lk - lr).abs().max().item()
+    pool_err = max((pk.k - prf.k).abs().max().item(),
+                   (pk.v - prf.v).abs().max().item())
+    pool_scale = prf.k.abs().max().item()
+    # rows 0..7 decode (row 7 idle), 8 and 9 the chunks' last rows
+    adapter_rows, base_rows = [0, 1, 3, 4, 6, 8], [2, 5, 9]
+    lora_effect = (lk[adapter_rows] - lo[adapter_rows]).abs().max().item()
+    base_diff = (lk[base_rows] - lo[base_rows]).abs().max().item()
+    ok = (bool(torch.isfinite(lk).all()) and err <= STEP_REL_TOL * scale
+          and pool_err <= STEP_REL_TOL * pool_scale
+          and lora_effect > STEP_REL_TOL * scale
+          and base_diff <= STEP_REL_TOL * scale)
+    emit("lora_step", step="mixed_step", model=cfg.name, dtype="float32",
+         adapters=LORA_ADAPTERS, rank=LORA_RANK,
+         dec_adapter_ids=ids["dec_adapter_ids"].tolist(),
+         pre_adapter_ids=ids["pre_adapter_ids"].tolist(),
+         logits_max_abs=scale, max_abs_err=err, pool_max_abs_err=pool_err,
+         lora_on_off_max_abs=lora_effect, base_rows_on_off_max_abs=base_diff,
+         rel_tol=STEP_REL_TOL, ok=ok)
+    if not ok:
+        raise AssertionError("full-width LoRA mixed_step failed its checks")
+    del params, pool, bank, outs
+
+
+def lora_serve_once(torch, cfg, prompts, pa, pp):
+    """Three waves through one bf16 engine whose bank holds 7 adapters:
+    base + lora-0..5 (7 requests), base + lora-6..9 (5: the bank evicts
+    three of the first wave's adapters to the host tier), then base + the
+    three evicted names (4: they come back from the host tier).  Each
+    wave is submitted at once and served to the end."""
+    from repro_torch.engine import (EngineConfig, InferenceEngine, Request,
+                                    SamplingParams)
+    eng = InferenceEngine(cfg, EngineConfig(**LORA_ECFG), seed=0,
+                          device="cuda")
+    waves = [[None] + [f"lora-{i}" for i in range(6)],
+             [None] + [f"lora-{i}" for i in range(6, 10)]]
+    reqs, modes, launches, want = [], {}, {}, {}
+    t0 = time.perf_counter()
+    for w in range(3):
+        if w == 2:
+            evicted = sorted(set(waves[0][1:]) - set(eng.adapters))
+            waves.append([None] + evicted)
+        wave = [greedy(Request, SamplingParams, prompts[len(reqs) + i],
+                       LORA_MAX_NEW, lora_adapter=name)
+                for i, name in enumerate(waves[w])]
+        reqs += wave
+
+        def drive():
+            for r in wave:
+                eng.submit(r)
+            eng.run_until_idle()
+        m, n, x = counted(torch, eng, pa, pp, drive)
+        for d, part in ((modes, m), (launches, n), (want, x)):
+            for k, v in part.items():
+                d[k] = d.get(k, 0) + v
+    wall = time.perf_counter() - t0
+    met = eng.metrics()
+    out = dict(adapters=[r.lora_adapter for r in reqs],
+               tokens=[list(r.output_tokens) for r in reqs],
+               finished=sum(r.state.name == "FINISHED"
+                            and len(r.output_tokens) == LORA_MAX_NEW
+                            for r in reqs),
+               modes=modes, launches=launches, want=want, wall_s=wall,
+               free_pages=eng.alloc.num_free, num_pages=eng.alloc.num_pages,
+               lora_cold_loads=met.lora_cold_loads,
+               lora_cold_load_s=met.lora_cold_load_s,
+               lora_evictions=met.lora_evictions,
+               lora_host_hits=met.lora_host_hits, lora_miss=met.lora_miss,
+               loaded=list(met.loaded_adapters))
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def lora_serve(torch, cfg, pa, pp):
+    """Phase 6 (b): the bf16 multi-LoRA serve, twice on fresh engines,
+    then 3 of its requests each alone on a fresh engine."""
+    import numpy as np
+    from repro_torch.engine import (EngineConfig, InferenceEngine, Request,
+                                    SamplingParams)
+    rng = np.random.default_rng(5)
+    lens = rng.integers(PROMPT_RANGE[0], PROMPT_RANGE[1] + 1, N_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in lens]
+    runs = [lora_serve_once(torch, cfg, prompts, pa, pp) for _ in range(2)]
+    smi = nvidia_smi()
+    for i, run in enumerate(runs):
+        gen_tokens = sum(len(t) for t in run["tokens"])
+        ok = (run["finished"] == N_REQUESTS
+              and run["free_pages"] == run["num_pages"]
+              and run["launches"] == run["want"]
+              and run["lora_evictions"] > 0 and run["lora_host_hits"] > 0
+              and run["lora_miss"] == 0
+              and run["adapters"] == runs[0]["adapters"]
+              and run["tokens"] == runs[0]["tokens"])
+        emit("lora_serve", run=i + 1, model=cfg.name, config=LORA_ECFG,
+             requests=N_REQUESTS, adapters=run["adapters"],
+             distinct_adapters=len({a for a in run["adapters"] if a}),
+             generated_tokens=gen_tokens, finished=run["finished"],
+             free_pages=run["free_pages"], num_pages=run["num_pages"],
+             steps=run["modes"], launches=run["launches"],
+             expected_launches=run["want"],
+             lora_cold_loads=run["lora_cold_loads"],
+             lora_cold_load_s=run["lora_cold_load_s"],
+             lora_evictions=run["lora_evictions"],
+             lora_host_hits=run["lora_host_hits"],
+             lora_miss=run["lora_miss"], loaded_adapters=run["loaded"],
+             same_tokens_as_run_1=run["tokens"] == runs[0]["tokens"],
+             wall_s=run["wall_s"],
+             output_tokens_per_s=gen_tokens / run["wall_s"], card=smi, ok=ok)
+        if not ok:
+            raise AssertionError(f"LoRA serve run {i + 1} failed its checks")
+    # alone on a fresh engine: the base row of wave 1, an adapter of wave
+    # 1, and an adapter that came back through the host tier in wave 3
+    picks = [0, 1, N_REQUESTS - 1]
+    for j in picks:
+        eng = InferenceEngine(cfg, EngineConfig(**LORA_ECFG), seed=0,
+                              device="cuda")
+        r = greedy(Request, SamplingParams, prompts[j], LORA_MAX_NEW,
+                   lora_adapter=runs[0]["adapters"][j])
+        eng.submit(r)
+        eng.run_until_idle()
+        batch = runs[0]["tokens"][j]
+        first_diff = next((t for t, (x, y) in enumerate(zip(
+            r.output_tokens, batch)) if x != y), None)
+        ok = list(r.output_tokens) == batch
+        emit("lora_alone", request=j, adapter=runs[0]["adapters"][j],
+             same_tokens_as_batch=ok, first_divergent_token=first_diff,
+             ok=ok)
+        del eng
+        torch.cuda.empty_cache()
+        if not ok:
+            raise AssertionError(f"request {j} alone differs from the batch")
+
+
+def adapter_load_times(torch, cfg):
+    """Cold-load (from the name) and host-hit load of one adapter into a
+    bf16 bank, wall ms each, 8 of each (the runner syncs the card)."""
+    from repro_torch.engine import EngineConfig, InferenceEngine
+    eng = InferenceEngine(cfg, EngineConfig(**LORA_ECFG), seed=0,
+                          device="cuda")
+    r = eng.runner
+    cold, host = [], []
+    for i in range(8):
+        t0 = time.perf_counter()
+        r.register_adapter(f"load-{i}")
+        cold.append((time.perf_counter() - t0) * 1e3)
+        r.unregister_adapter(f"load-{i}")
+        t0 = time.perf_counter()
+        r.register_adapter(f"load-{i}")
+        host.append((time.perf_counter() - t0) * 1e3)
+        r.unregister_adapter(f"load-{i}")
+    nbytes = sum(t[1].numel() * t.element_size() for t in r.lora.values())
+    emit("adapter_load", model=cfg.name, rank=LORA_RANK, dtype="bfloat16",
+         adapter_bytes=nbytes, cold_ms=cold, host_hit_ms=host,
+         host_hits=r.adapter_host_hits, card=nvidia_smi())
+    del eng
+    torch.cuda.empty_cache()
+
+
+def tier_engine(cfg, **kw):
+    from repro_torch.engine import EngineConfig, InferenceEngine
+    ecfg = dict(TIER_ECFG)
+    extra = {k: kw.pop(k) for k in ("clock", "kv_pool_client", "engine_id")
+             if k in kw}
+    ecfg.update(kw)
+    return InferenceEngine(cfg, EngineConfig(**ecfg), seed=0, device="cuda",
+                           **extra)
+
+
+def tiers(torch, cfg, pa, pp):
+    """Phase 7 (bf16, full width): swap preemption, host-tier prefix,
+    SSD cascade with promotion, P/D over the raw and the int8 wire, and
+    the time of one page's payload off the card and back."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from repro_torch.core.kvcache import DistributedKVPool
+    from repro_torch.engine import Request, SamplingParams
+    rng = np.random.default_rng(9)
+    n_new = TIER_MAX_NEW
+
+    def prompt(n):
+        return rng.integers(0, cfg.vocab_size, n).tolist()
+
+    def serve(eng, toks, **kw):
+        r = greedy(Request, SamplingParams, toks, n_new, **kw)
+        eng.submit(r)
+        eng.run_until_idle()
+        return list(r.output_tokens)
+
+    def check(name, ok, **fields):
+        emit("tiers", check=name, model=cfg.name, dtype="bfloat16", **fields,
+             ok=bool(ok))
+        if not ok:
+            raise AssertionError(f"tiers: {name} failed")
+
+    def launch_fields(counts):
+        modes, launches, want = counts
+        return dict(steps=modes, launches=launches, expected_launches=want)
+
+    # swap preemption: preempt a decoding request, resume from the host tier
+    p = prompt(300)
+    ref = serve(tier_engine(cfg), p)
+    eng = tier_engine(cfg, host_cache_gb=1.0)
+    req = greedy(Request, SamplingParams, p, n_new)
+
+    swapped = []
+
+    def drive_swap():
+        eng.submit(req)
+        while len(req.output_tokens) < n_new // 2:
+            eng.step()
+        eng.sched.preempt(req, eng.clock())
+        swapped.append(req.state.name)
+        eng.run_until_idle()
+    counts = counted(torch, eng, pa, pp, drive_swap)
+    m = eng.metrics()
+    check("swap preemption", req.output_tokens == ref
+          and swapped == ["SWAPPED"] and m.swap_out == m.swap_in == 1
+          and counts[1] == counts[2]
+          and eng.alloc.num_free == eng.alloc.num_pages,
+          swap_out=m.swap_out, swap_in=m.swap_in,
+          kv_bytes_offloaded=m.kv_bytes_offloaded,
+          kv_bytes_fetched=m.kv_bytes_fetched,
+          same_tokens_as_unpreempted=req.output_tokens == ref,
+          **launch_fields(counts))
+    del eng
+
+    # host-tier prefix: evicted from the device under page pressure
+    shared = prompt(256)
+    eng = tier_engine(cfg, host_cache_gb=1.0, num_pages=64)
+    first = serve(eng, shared)
+    for _ in range(3):
+        serve(eng, prompt(700))
+    out = {}
+    counts = counted(torch, eng, pa, pp,
+                     lambda: out.setdefault("again", serve(eng, shared)))
+    m = eng.metrics()
+    check("host-tier prefix", out["again"] == first
+          and m.host_hit_tokens > 0 and counts[1] == counts[2],
+          device_evictions=eng.sched.alloc.stats["evictions"],
+          host_puts=eng.host_pool.stats.puts,
+          host_hit_tokens=m.host_hit_tokens,
+          same_tokens_as_first=out["again"] == first,
+          **launch_fields(counts))
+    page_bytes = eng.runner.page_bytes
+    del eng
+
+    # SSD tier: device -> host (24 pages) -> SSD, then promotion back
+    ssd_dir = tempfile.mkdtemp(prefix="chip-smoke-ssd-")
+    try:
+        eng = tier_engine(cfg, num_pages=64,
+                          host_cache_gb=24 * page_bytes / (1 << 30),
+                          ssd_cache_gb=1.0, ssd_dir=ssd_dir)
+        first = serve(eng, shared, session_id="conv0")
+        for _ in range(3):
+            serve(eng, prompt(700))
+        eng.ssd_pool.drain()
+        promotable = eng.sched.session_promotable("conv0")
+        queued = eng.promote_session("conv0")
+        eng.drain_promotions()
+        out = {}
+        counts = counted(torch, eng, pa, pp, lambda: out.setdefault(
+            "again", serve(eng, shared, session_id="conv0")))
+        m = eng.metrics()
+        check("SSD tier with promotion", out["again"] == first
+              and queued == len(promotable) > 0 and m.promote_hits > 0
+              and counts[1] == counts[2],
+              ssd_puts=eng.ssd_pool.stats.puts,
+              ssd_bytes_written=eng.ssd_pool.stats.bytes_written,
+              promoted=queued, promote_hits=m.promote_hits,
+              host_hit_tokens=m.host_hit_tokens,
+              same_tokens_as_first=out["again"] == first,
+              **launch_fields(counts))
+        del eng
+    finally:
+        shutil.rmtree(ssd_dir, ignore_errors=True)
+
+    # P/D: a prefill engine publishes to the pool, a decode engine pulls
+    p = prompt(400)
+    ref = serve(tier_engine(cfg), p)
+    for wire in ("fp", "int8"):
+        t0 = time.monotonic()
+        clock = lambda: time.monotonic() - t0    # noqa: E731
+        pool = DistributedKVPool(capacity_bytes=8 << 30, metadata_lag=0.0,
+                                 clock=clock)
+        kw = dict(wire_dtype=wire, clock=clock, kv_pool_client=pool)
+        pre = tier_engine(cfg, role="prefill", engine_id="p0", **kw)
+        dec = tier_engine(cfg, role="decode", engine_id="d0", **kw)
+        pre.handoff = dec.submit
+        req = greedy(Request, SamplingParams, p, n_new)
+        pre.submit(req)
+        for _ in range(1000):
+            if not (pre.has_work or dec.has_work):
+                break
+            if pre.has_work:
+                pre.step()
+            if dec.has_work:
+                dec.step()
+        md = dec.metrics()
+        per_page = pool.stats.bytes_stored / max(len(pool.blocks), 1)
+        done = (req.state.name == "FINISHED"
+                and len(req.output_tokens) == n_new)
+        # int8 + a float32 scale per layer for K and for V
+        int8_page = page_bytes // 2 + 2 * cfg.n_layers * 4
+        ok = (done and md.remote_hit_tokens > 0
+              and (req.output_tokens == ref if wire == "fp"
+                   else per_page == int8_page))
+        check(f"P/D handoff, {wire} wire", ok, blocks=len(pool.blocks),
+              pool_bytes_per_page=per_page, page_bytes=page_bytes,
+              remote_hit_tokens=md.remote_hit_tokens,
+              kv_bytes_fetched=md.kv_bytes_fetched,
+              same_tokens_as_mixed=req.output_tokens == ref)
+        del pre, dec, pool
+
+    # one page off the card and back, at the serving page
+    eng = tier_engine(cfg)
+    eng.runner.pool.k[:, 7].normal_()
+    eng.runner.pool.v[:, 7].normal_()
+    k, v = eng.runner.page_payload(7)
+    torch.cuda.synchronize()
+
+    def d2h():
+        eng.runner.page_payload(7)
+
+    def h2d():
+        eng.runner.write_remote_page(9, k, v)
+        torch.cuda.synchronize()
+    times = {}
+    for name, fn in (("page_payload", d2h), ("write_remote_page", h2d)):
+        for _ in range(3):
+            fn()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            fn()
+        times[name] = (time.perf_counter() - t0) * 1e3 / 50
+    same = (torch.equal(eng.runner.pool.k[:, 9], eng.runner.pool.k[:, 7])
+            and torch.equal(eng.runner.pool.v[:, 9], eng.runner.pool.v[:, 7]))
+    check("page payload round trip", same and k.nbytes + v.nbytes
+          == page_bytes, page_bytes=page_bytes,
+          page_payload_ms=times["page_payload"],
+          page_payload_gb_per_s=page_bytes / times["page_payload"] / 1e6,
+          write_remote_page_ms=times["write_remote_page"],
+          write_remote_page_gb_per_s=page_bytes
+          / times["write_remote_page"] / 1e6, card=nvidia_smi())
+    del eng
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------ slot path
 def slot_step(torch, cfg, fp):
-    """Phase 6: full-width float32 ``prefill`` of one 1500-token prompt
+    """Phase 8: full-width float32 ``prefill`` of one 1500-token prompt
     and 4 ``decode_step``s (fixed tokens), once with the flash_prefill
     kernel and once with its plain version, on the same weights."""
     from repro_torch.models import model as M
@@ -621,7 +1038,7 @@ def slot_serve_once(torch, cfg, prompts, counters):
 
 
 def slot_serve(torch, cfg, counters):
-    """Phase 7: the full-width bf16 slot serve, twice."""
+    """Phase 9: the full-width bf16 slot serve, twice."""
     import numpy as np
     rng = np.random.default_rng(1)
     lens = rng.integers(SLOT_PROMPTS[0], SLOT_PROMPTS[1] + 1, SLOT_REQUESTS)
@@ -746,7 +1163,7 @@ def decode_row(torch, gen, launches, h, hkv, d, page, nb, lengths,
 
 
 def timing(torch, cfg, launches):
-    """Phase 8: kernel, plain and library times and the bound, at the
+    """Phase 10: kernel, plain and library times and the bound, at the
     serving shapes (bf16, H 16, Hkv 8, D 64, page 16, a pool of 1025
     pages, block tables 52 wide, 8 decode rows, 2 chunks of 64); then
     ``paged_attention`` at long contexts and at glm4-9b's group shape,
@@ -923,23 +1340,43 @@ def device_profile(torch, step, n):
 
 
 def profile_step(torch, cfg):
-    """Phase 9: one full-width bf16 paged mixed step (8 decode rows,
+    """Phase 11: one full-width bf16 paged mixed step (8 decode rows,
     chunks of 64 and 37), ended by a synchronize as the engine's
-    sampling ends it."""
+    sampling ends it; then the same step with a bank of 4 adapters, the
+    rows on 4 distinct adapters and the base model."""
     from repro_torch.engine import paged_model as PM
     params, pool, a, page = step_inputs(torch, cfg, torch.bfloat16)
+    bank = PM.init_lora(cfg, LORA_ADAPTERS + 1, LORA_RANK, torch.bfloat16,
+                        "cuda")
+    for i in range(1, LORA_ADAPTERS + 1):
+        for k, w in PM.make_adapter(cfg, LORA_RANK, seed=100 + i).items():
+            bank[k][i].copy_(w)
+    ids = dict(dec_adapter_ids=torch.tensor(
+        [1, 2, 0, 3, 4, 0, 1, 0], dtype=torch.int32, device="cuda"),
+        pre_adapter_ids=torch.tensor([3, 0], dtype=torch.int32,
+                                     device="cuda"))
 
     def step():
         PM.mixed_step(params, pool, **a, cfg=cfg, page_size=page)
         torch.cuda.synchronize()
 
+    def step_with_lora():
+        PM.mixed_step(params, pool, **a, lora=bank, **ids, cfg=cfg,
+                      page_size=page)
+        torch.cuda.synchronize()
+
     emit("profile", step="mixed_step", model=cfg.name, dtype="bfloat16",
          **device_profile(torch, step, 10))
-    del params, pool
+    emit("profile", step="mixed_step with LoRA", model=cfg.name,
+         dtype="bfloat16", adapters=LORA_ADAPTERS, rank=LORA_RANK,
+         dec_adapter_ids=ids["dec_adapter_ids"].tolist(),
+         pre_adapter_ids=ids["pre_adapter_ids"].tolist(),
+         **device_profile(torch, step_with_lora, 10))
+    del params, pool, bank
 
 
 def profile_slot(torch, cfg):
-    """Phase 9: the slot path at full width in bf16: one prefill of a
+    """Phase 11: the slot path at full width in bf16: one prefill of a
     2048-token prompt into a one-row cache, and one decode step of 4
     slots at positions 1200-3000 of a 4096-token cache, each ended by a
     synchronize as the engine's sampling ends it."""
@@ -1005,8 +1442,8 @@ def ptxas_summary(log):
     return dict(functions=fns, notes=notes)
 
 
-PHASES = ("kernels", "step", "serve", "slot_step", "slot_serve", "timing",
-          "profile")
+PHASES = ("kernels", "step", "serve", "lora", "tiers", "slot_step",
+          "slot_serve", "timing", "profile")
 
 
 def main() -> int:
@@ -1067,6 +1504,16 @@ def main() -> int:
         full_width_step(torch, cfg)
     if "serve" in only:
         launches = serve(torch, cfg, pa, pp)
+    if "lora" in only:
+        t0 = time.perf_counter()
+        lora_step(torch, cfg)
+        lora_serve(torch, cfg, pa, pp)
+        adapter_load_times(torch, cfg)
+        emit("lora_done", seconds=time.perf_counter() - t0)
+    if "tiers" in only:
+        t0 = time.perf_counter()
+        tiers(torch, cfg, pa, pp)
+        emit("tiers_done", seconds=time.perf_counter() - t0)
     if "slot_step" in only:
         slot_step(torch, gemma, fp)
     if "slot_serve" in only:

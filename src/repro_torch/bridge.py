@@ -1,5 +1,5 @@
-"""Carry weights, KV pages and slot caches over from the JAX package, as
-numpy arrays.
+"""Carry weights, adapters, KV pages and slot caches over from the JAX
+package, as numpy arrays.
 
 ``repro`` draws its parameters with ``jax.random`` and the port with
 ``torch.Generator``s, so the two never agree from a seed.  To compute
@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.engine import paged_model as PM
 from repro_torch.engine.paged_model import PagePool
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
@@ -60,6 +61,29 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig, dtype=None,
         return {k: convert(spec[k], sub[k], f"{path}/{k}") for k in spec}
 
     return convert(M.model_specs(cfg), tree, "")
+
+
+def adapter_from_numpy(weights: Mapping, cfg: ModelConfig, rank: int,
+                       dtype=None, device=None) -> dict:
+    """One adapter's weights from the JAX package (``A_q``, ``B_q``,
+    ``A_v``, ``B_v`` as numpy arrays, the layout of
+    ``repro.engine.paged_model.make_adapter``) -> tensors on ``device``
+    (the card unless one is named), for ``register_adapter(name,
+    weights=...)``.  Raises on a missing or extra leaf or a shape
+    mismatch."""
+    device = resolve_device(device)
+    specs = PM.lora_specs(cfg, 1, rank)
+    if set(weights) != set(specs):
+        raise ValueError(f"adapter keys {sorted(weights)}, expected "
+                         f"{sorted(specs)}")
+    out = {}
+    for k, spec in specs.items():
+        t = to_tensor(weights[k], dtype, device)
+        if tuple(t.shape) != spec.shape[1:]:
+            raise ValueError(f"{k}: shape {tuple(t.shape)}, expected "
+                             f"{spec.shape[1:]}")
+        out[k] = t
+    return out
 
 
 def pool_from_numpy(k: Any, v: Any, dtype=None, device=None) -> PagePool:

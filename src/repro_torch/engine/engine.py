@@ -3,28 +3,49 @@
 
 One ``InferenceEngine`` composes the copied scheduler
 (:class:`repro_torch.engine.scheduler.Scheduler`, the same admission,
-token-budget, chunking and preemption logic as the JAX engine) with a
-:class:`repro_torch.engine.runner.ModelRunner` that executes each
+token-budget, chunking, preemption and P/D logic as the JAX engine) with
+a :class:`repro_torch.engine.runner.ModelRunner` that executes each
 schedule on a device: ``mixed_step`` for fused decode + prefill passes,
 ``decode_batch`` and ``prefill_step`` otherwise.
+
+High-density LoRA serving: requests name an adapter; the runner's bank
+holds ``max_adapters - 1`` of them (slot 0 is the base model) with an
+LRU cascade into a bounded host tier.  An adapter the caller does not
+pass in is autoloaded from the port's own name-keyed weights
+(``ModelRunner._adapter_seed``), which differ from the JAX package's.
+
+The KV tiers, as in the JAX engine: a host-DRAM tier (``host_cache_gb``:
+device evictions cascade into it, preemption swaps to it), an SSD tier
+below it (``ssd_cache_gb`` or a host-shared ``ssd_pool``, with
+``promote_session`` prefetching a session's pages back on a daemon
+thread), and the distributed pool (``kv_pool_client``) with P/D roles
+(``role="prefill"`` publishes a prompt's pages and hands the request to
+``handoff``; ``role="decode"`` pulls them by block hash) over the raw or
+the int8 wire (``wire_dtype``).  Pages cross every tier as the runner's
+numpy payloads.
 
 The engine runs on the card unless the caller names another device
 (``device="cpu"`` for tests); on a CUDA device only ``impl="kernel"``
 is accepted, so the plain attention never sits on the card's serving
-path.  Not ported yet, and refused when configured: the host and SSD KV
-tiers, the distributed KV pool client and P/D roles, speculative
-decoding, the async loop, LoRA adapters and sampling at
-temperature > 0.
+path.  Not ported yet, and refused when configured: speculative
+decoding, the async loop and sampling at temperature > 0.
 """
 from __future__ import annotations
 
+import queue
+import tempfile
+import threading
 import time
 from dataclasses import dataclass
 from typing import Callable, List, Optional
 
+from repro_torch.core.kvcache.tiers import (CompressedPage, HostPagePool,
+                                            SSDPagePool, compress_page,
+                                            decompress_page, payload_nbytes,
+                                            validate_wire_dtype)
 from repro_torch.device import resolve_device
 from repro_torch.engine import paged_model as PM
-from repro_torch.engine.page_table import PageAllocator
+from repro_torch.engine.page_table import PageAllocator, chunk_hashes
 from repro_torch.engine.request import Request
 from repro_torch.engine.runner import ModelRunner
 from repro_torch.engine.scheduler import (EngineMetrics, ScheduleOutput,
@@ -36,8 +57,9 @@ from repro_torch.models.config import DENSE, ModelConfig
 class EngineConfig:
     """The JAX engine's configuration, field for field (``impl`` takes
     ``"kernel"`` or ``"ref"``).  See ``repro/engine/engine.py`` for what
-    each field does; the fields of features that are not ported yet are
-    kept so that configurations carry over, and are refused when set."""
+    each field does; the fields of features that are not ported yet
+    (speculation, the async loop) are kept so that configurations carry
+    over, and are refused when set."""
     page_size: int = 16
     num_pages: int = 512
     max_batch: int = 8              # decode slots
@@ -105,13 +127,8 @@ class EngineConfig:
             spec_probe_interval=self.spec_probe_interval, **kw)
 
 
-def _refuse_unported(ecfg: EngineConfig, kv_pool_client, ssd_pool) -> None:
+def _refuse_unported(ecfg: EngineConfig) -> None:
     unported = {
-        "host KV tier (host_cache_gb)": ecfg.host_cache_gb > 0,
-        "SSD KV tier (ssd_cache_gb, ssd_pool)":
-            ecfg.ssd_cache_gb > 0 or ssd_pool is not None,
-        "distributed KV pool client": kv_pool_client is not None,
-        "P/D roles (role)": ecfg.role != "mixed",
         "speculative decoding (spec_tokens)": ecfg.spec_tokens > 0,
         "async loop (async_loop)": ecfg.async_loop,
     }
@@ -134,7 +151,8 @@ class InferenceEngine:
         if cfg.layer_runs[0][0] != DENSE:
             raise NotImplementedError(
                 f"{cfg.name}: only DENSE layers are ported so far")
-        _refuse_unported(ecfg, kv_pool_client, ssd_pool)
+        _refuse_unported(ecfg)
+        validate_wire_dtype(ecfg.wire_dtype)
         self.device = resolve_device(device)
         if self.device.type == "cuda" and ecfg.impl != "kernel":
             raise ValueError("on a CUDA device the engine runs the kernels "
@@ -142,12 +160,48 @@ class InferenceEngine:
         self.cfg, self.ecfg = cfg, ecfg
         self.engine_id = engine_id
         self.clock = clock
+        self.kv_pool = kv_pool_client
         self.runner = ModelRunner(cfg, ecfg, self.device, params=params,
                                   seed=seed)
+        # host-DRAM KV tier: device evictions cascade into it and
+        # preemption swaps to it instead of recomputing
+        self.host_pool = None
+        if ecfg.host_cache_gb > 0:
+            self.host_pool = HostPagePool(
+                capacity_bytes=int(ecfg.host_cache_gb * (1 << 30)))
+        # SSD third tier (write-behind, file-backed) below the host tier
+        self.ssd_pool = None
+        if ssd_pool is not None and self.host_pool is not None:
+            # a host-shared SharedSSDPool: attach this engine's view
+            self.ssd_pool = ssd_pool.view(engine_id) \
+                if hasattr(ssd_pool, "view") else ssd_pool
+        elif ecfg.ssd_cache_gb > 0 and self.host_pool is not None:
+            ssd_dir = ecfg.ssd_dir or tempfile.mkdtemp(
+                prefix=f"kv-ssd-{engine_id}-")
+            self.ssd_pool = SSDPagePool(
+                capacity_bytes=int(ecfg.ssd_cache_gb * (1 << 30)),
+                directory=ssd_dir)
         self.sched = Scheduler(
             ecfg.scheduler_config(),
             PageAllocator(ecfg.num_pages, ecfg.page_size),
-            engine_id=engine_id, page_bytes=self.runner.page_bytes)
+            kv_pool=kv_pool_client, engine_id=engine_id,
+            install_page=self._install_page,
+            publish_page=self._publish_page,
+            host_pool=self.host_pool,
+            page_payload=self.runner.page_payload,
+            page_bytes=self.runner.page_bytes,
+            adapter_ready=lambda name: name in self.runner.adapter_ids,
+            ssd_pool=self.ssd_pool)
+        # unloads requested while the adapter still serves an in-flight
+        # batch are deferred (applied at the next step() once the last
+        # user drains): the control plane never disturbs a batch
+        self._deferred_unloads: set = set()
+        # predictive promotion: a daemon thread reads SSD pages off the
+        # critical path; landed payloads queue here and are installed
+        # into the host pool at step boundaries by the engine thread
+        self._promote_req_q: Optional[queue.Queue] = None
+        self._promote_q: Optional[queue.Queue] = None
+        self._promoter: Optional[threading.Thread] = None
 
     # ----------------------------------------------------------- views
     @property
@@ -178,26 +232,152 @@ class InferenceEngine:
     def finished(self) -> List[Request]:
         return self.sched.finished
 
+    @property
+    def handoff(self) -> Optional[Callable[[Request], None]]:
+        return self.sched.handoff
+
+    @handoff.setter
+    def handoff(self, fn) -> None:
+        self.sched.handoff = fn
+
+    # ------------------------------------------------------------- LoRA
+    def _adapters_in_use(self) -> set:
+        """Adapters pinned by admitted (in-flight) requests."""
+        return {r.lora_adapter
+                for r in self.sched.running + self.sched.prefills
+                if r.lora_adapter}
+
+    def register_adapter(self, name: str, weights: dict = None) -> int:
+        self._deferred_unloads.discard(name)   # re-wanted before unload
+        return self.runner.register_adapter(
+            name, weights, pinned=self._adapters_in_use())
+
+    def unregister_adapter(self, name: str) -> None:
+        if name in self._adapters_in_use():
+            self._deferred_unloads.add(name)
+            return
+        self.runner.unregister_adapter(name)
+
+    def _flush_deferred_unloads(self) -> None:
+        if not self._deferred_unloads:
+            return
+        in_use = self._adapters_in_use()
+        for name in list(self._deferred_unloads):
+            if name not in in_use:
+                self._deferred_unloads.discard(name)
+                self.runner.unregister_adapter(name)
+
+    @property
+    def adapters(self) -> List[str]:
+        return self.runner.adapters
+
     # ------------------------------------------------------------- submit
     def submit(self, req: Request) -> None:
-        if req.lora_adapter:
-            raise NotImplementedError(
-                f"request {req.request_id} names LoRA adapter "
-                f"{req.lora_adapter!r}: LoRA is not ported yet")
         if req.sampling.temperature > 0:
             raise NotImplementedError(
                 f"request {req.request_id}: sampling at temperature > 0 "
                 "is not ported yet")
+        if (req.lora_adapter and self.ecfg.lora_autoload
+                and req.lora_adapter not in self.runner.adapter_ids):
+            try:
+                self.register_adapter(req.lora_adapter)
+            except RuntimeError:
+                pass    # all slots pinned: queue behind adapter_ready
         self.sched.enqueue(req, self.clock())
 
     @property
     def has_work(self) -> bool:
         return self.sched.has_work
 
+    # ------------------------------------------------------------- pool
+    def _install_page(self, pid: int, payload, req: Request,
+                      now: float, source: str = "pool",
+                      stream: bool = False, nbytes: int = 0) -> None:
+        """Payload hook for the scheduler's page walk (pool, host or SSD
+        tier): write the fetched (k_page, v_page) arrays into a local
+        device page, dequantizing compressed wire payloads first.
+        ``stream`` only changes the simulator's cost attribution."""
+        if isinstance(payload, CompressedPage):
+            payload = decompress_page(payload)
+        self.runner.write_remote_page(pid, *payload)
+
+    def _publish_page(self, pid: int, block_hash: str, req: Request,
+                      now: float) -> None:
+        """Payload hook for the scheduler's prompt-page registration:
+        copy the page off the device and publish it under its block
+        hash, quantized to int8 with per-layer scales when the wire
+        format asks for it."""
+        payload = self.runner.page_payload(pid)
+        size = self.runner.page_bytes
+        if self.ecfg.wire_dtype == "int8":
+            payload = compress_page(*payload)
+            size = payload.nbytes
+        self.kv_pool.publish(block_hash, payload, self.engine_id, now,
+                             size_bytes=size)
+
+    # -------------------------------------------------------- promotion
+    def promote_session(self, session_id: str) -> int:
+        """Prefetch a session's SSD-resident pages back into host DRAM
+        ahead of its predicted next turn.  The SSD reads happen on a
+        background daemon thread; payloads land in the host pool at the
+        next step boundary.  Returns the number of pages queued."""
+        if self.ssd_pool is None or self.host_pool is None:
+            return 0
+        keys = self.sched.session_promotable(session_id)
+        if not keys:
+            return 0
+        self._ensure_promoter()
+        self._promote_req_q.put((session_id, keys))
+        return len(keys)
+
+    def _ensure_promoter(self) -> None:
+        if self._promoter is not None:
+            return
+        self._promote_req_q = queue.Queue()
+        self._promote_q = queue.Queue()
+        self._promoter = threading.Thread(
+            target=self._promote_worker, daemon=True,
+            name=f"kv-promote-{self.engine_id}")
+        self._promoter.start()
+
+    def _promote_worker(self) -> None:
+        while True:
+            sid, keys = self._promote_req_q.get()
+            try:
+                for key in keys:
+                    payload = self.ssd_pool.get(key, self.clock())
+                    if payload is not None:
+                        self._promote_q.put((key, payload, sid))
+            finally:
+                self._promote_req_q.task_done()
+
+    def _land_promotions(self) -> None:
+        """Engine-thread drain: install prefetched pages in host DRAM."""
+        if self._promote_q is None:
+            return
+        while True:
+            try:
+                key, payload, sid = self._promote_q.get_nowait()
+            except queue.Empty:
+                return
+            self.sched.complete_promotion(
+                key, payload,
+                payload_nbytes(payload, self.runner.page_bytes),
+                self.clock(), sid)
+
+    def drain_promotions(self) -> None:
+        """Block until all queued promotions have been read off SSD,
+        then land them (deterministic tests / shutdown)."""
+        if self._promote_req_q is not None:
+            self._promote_req_q.join()
+        self._land_promotions()
+
     # ------------------------------------------------------------- step
     def step(self) -> int:
         """One scheduler iteration.  Returns #tokens produced (one per
         decode row, one per *completed* prefill)."""
+        self._flush_deferred_unloads()
+        self._land_promotions()
         return self._exec(self.sched.schedule(self.clock()))
 
     def _exec(self, out: ScheduleOutput) -> int:
@@ -235,6 +415,19 @@ class InferenceEngine:
             return False
         now = self.clock()
         self.sched.register_prompt_pages(req, now)
+        if self.sched.wants_handoff:
+            # disaggregated: the KV is in the pool; hand the request to a
+            # decode engine.  The synchronous data plane flushes exactly
+            # the records it just published, so the decode engine's
+            # admission walk sees them instead of recomputing the prompt.
+            self.sched.handoff_prefill(req, now)
+            if self.kv_pool is not None:
+                self.kv_pool.flush_hashes(
+                    chunk_hashes(req.prompt_tokens, self.ecfg.page_size,
+                                 req.lora_adapter or ""),
+                    now)
+            self.sched.deliver_handoff(req)
+            return False
         tok = self.runner.sample(logits, [req])[0]
         self.sched.finish_prefill(req, int(tok), now)
         self.sched.note_tokens(now, req.prompt_len + 1)
@@ -253,7 +446,13 @@ class InferenceEngine:
 
     # ------------------------------------------------------------- metrics
     def metrics(self) -> EngineMetrics:
-        return self.sched.metrics(self.clock())
+        m = self.sched.metrics(self.clock(),
+                               loaded_adapters=tuple(self.adapters))
+        m.lora_cold_loads = self.runner.adapter_loads
+        m.lora_cold_load_s = self.runner.adapter_load_s
+        m.lora_evictions = self.runner.adapter_evictions
+        m.lora_host_hits = self.runner.adapter_host_hits
+        return m
 
     def match_prefix_len(self, tokens) -> int:
         """Prefix-cache coverage for router scoring (non-mutating)."""

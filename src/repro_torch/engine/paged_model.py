@@ -1,5 +1,5 @@
 """Paged-KV forward passes for serving, the PyTorch counterpart of
-``repro/engine/paged_model.py`` (DENSE configs, no LoRA yet).
+``repro/engine/paged_model.py`` (DENSE configs).
 
 Three entry points over the stacked layer parameters of a single-run
 config:
@@ -19,10 +19,16 @@ write each layer's new K/V into the pool **in place**; the returned
 K/V writes (inactive decode rows, chunk padding) with ``mode="drop"``;
 here only the valid rows are selected and written, so no write reaches
 any page for them, the scratch page included.
+
+High-density LoRA is applied in-batch as in the JAX package: every
+request carries an adapter id into a gathered (adapter, d, r) x
+(adapter, r, out) pair on the q/v projections, two batched products
+(``torch.bmm``) outside any kernel.  Adapter 0 is the zero (base-model)
+adapter, so base rows and N adapters share one step.
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -31,6 +37,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models import layers
 from repro_torch.models import model as M
 from repro_torch.models.config import DENSE, MOE, ModelConfig
+from repro_torch.models.params import Spec, init_params
 
 
 def pageable(cfg: ModelConfig) -> bool:
@@ -53,6 +60,104 @@ def init_pool(cfg: ModelConfig, num_pages: int, page_size: int,
              cfg.head_dim)
     return PagePool(torch.zeros(shape, dtype=dtype, device=device),
                     torch.zeros(shape, dtype=dtype, device=device))
+
+
+# ---------------------------------------------------------------- LoRA
+def lora_specs(cfg: ModelConfig, n_adapters: int, rank: int) -> dict:
+    d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {
+        "A_q": Spec((n_adapters, d, rank), (None, None, None), "zeros"),
+        "B_q": Spec((n_adapters, rank, h * hd), (None, None, None), "zeros"),
+        "A_v": Spec((n_adapters, d, rank), (None, None, None), "zeros"),
+        "B_v": Spec((n_adapters, rank, hkv * hd), (None, None, None),
+                    "zeros"),
+    }
+
+
+def init_lora(cfg: ModelConfig, n_adapters: int, rank: int,
+              dtype=torch.float32, device=None) -> dict:
+    """A zeroed adapter bank on ``device`` (the card unless one is
+    named); slot 0 stays zero, the base model."""
+    return init_params(lora_specs(cfg, n_adapters, rank), 7, dtype, device)
+
+
+def make_adapter(cfg: ModelConfig, rank: int, seed: int) -> dict:
+    """A single random (non-zero) adapter's weights, float32 on the CPU.
+
+    Drawn from a CPU ``torch.Generator`` seeded with ``seed``, so a seed
+    gives the same weights whatever device the bank lives on.  The
+    scales are the JAX package's; the numbers are not (it draws with
+    ``jax.random``)."""
+    d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator().manual_seed(seed)
+    a_scale = 1.0 / (d ** 0.5)
+    b_scale = 0.5 / (rank ** 0.5)       # strong enough to alter outputs
+    return {
+        "A_q": torch.randn(d, rank, generator=gen) * a_scale,
+        "B_q": torch.randn(rank, h * hd, generator=gen) * b_scale,
+        "A_v": torch.randn(d, rank, generator=gen) * a_scale,
+        "B_v": torch.randn(rank, hkv * hd, generator=gen) * b_scale,
+    }
+
+
+def _lora_delta(lora: dict, which: str, x: torch.Tensor,
+                adapter_ids: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, d); adapter_ids: (B,) -> (B, S, out)."""
+    ids = adapter_ids.long()
+    a = lora[f"A_{which}"][ids]                 # (B, d, r)
+    b_ = lora[f"B_{which}"][ids]                # (B, r, out)
+    return torch.bmm(torch.bmm(x, a), b_)
+
+
+def _add_deltas(cfg: ModelConfig, q, v, dq, dv, positions):
+    """q + rope(dq), v + dv.  RoPE is linear, so the q-delta gets it on
+    its own; the v-delta takes none."""
+    sin, cos = layers.rope_freqs(positions, cfg.head_dim, cfg.rope_theta)
+    return q + layers.apply_rope(dq, sin, cos), v + dv
+
+
+def _qkv_lora(p_attn: dict, cfg: ModelConfig, x: torch.Tensor,
+              positions: torch.Tensor, lora: Optional[dict],
+              adapter_ids: Optional[torch.Tensor]):
+    q, k, v = layers.attn_qkv(p_attn, cfg, x, positions)
+    if lora is None:
+        return q, k, v
+    b, s = x.shape[:2]
+    dq = _lora_delta(lora, "q", x, adapter_ids).reshape(
+        b, s, cfg.n_heads, cfg.head_dim)
+    dv = _lora_delta(lora, "v", x, adapter_ids).reshape(
+        b, s, cfg.n_kv_heads, cfg.head_dim)
+    q, v = _add_deltas(cfg, q, v, dq, dv, positions)
+    return q, k, v
+
+
+def _qkv_lora_mixed(p_attn: dict, cfg: ModelConfig, x: torch.Tensor,
+                    positions: torch.Tensor, lora: Optional[dict],
+                    dec_adapter_ids: Optional[torch.Tensor],
+                    pre_adapter_ids: Optional[torch.Tensor], n_dec: int,
+                    n_pre: int, s: int):
+    """Like ``_qkv_lora`` for the flattened (1, B + K*S, d) mixed batch.
+
+    The adapter pair is gathered once per *request* (B for the decode
+    rows, K for the chunks), not per token: all S rows of a chunk share
+    one adapter."""
+    q, k, v = layers.attn_qkv(p_attn, cfg, x, positions)
+    if lora is None:
+        return q, k, v
+    d_model = x.shape[-1]
+
+    def delta(which: str, heads: int) -> torch.Tensor:
+        d_dec = _lora_delta(lora, which, x[0, :n_dec, None],
+                            dec_adapter_ids)                   # (B, 1, out)
+        d_pre = _lora_delta(lora, which,
+                            x[0, n_dec:].reshape(n_pre, s, d_model),
+                            pre_adapter_ids)                   # (K, S, out)
+        return torch.cat([d_dec.reshape(n_dec, heads, cfg.head_dim),
+                          d_pre.reshape(n_pre * s, heads, cfg.head_dim)]
+                         )[None]
+    q, v = _add_deltas(cfg, q, v, delta("q", cfg.n_heads),
+                       delta("v", cfg.n_kv_heads), positions)
+    return q, k, v
 
 
 def _layer_params(params, cfg: ModelConfig) -> List[dict]:
@@ -79,7 +184,9 @@ def _write_kv(pool: PagePool, layer: int, pidx: torch.Tensor,
 # ---------------------------------------------------------------- prefill
 def prefill_step(params, pool: PagePool, tokens: torch.Tensor,
                  block_table: torch.Tensor, ctx_len: int, chunk_len: int,
-                 *, cfg: ModelConfig, page_size: int, impl: str = "kernel"
+                 lora: Optional[dict] = None,
+                 adapter_ids: Optional[torch.Tensor] = None, *,
+                 cfg: ModelConfig, page_size: int, impl: str = "kernel"
                  ) -> Tuple[torch.Tensor, PagePool]:
     """One (possibly chunked) prefill for ONE request.
 
@@ -87,6 +194,7 @@ def prefill_step(params, pool: PagePool, tokens: torch.Tensor,
     block_table: (1, NB) int32 pages covering [0, ctx+s)
     ctx_len:     tokens already in the pages (prefix cache + earlier
                  chunks)
+    lora, adapter_ids: the adapter bank and (1,) slot (None: no LoRA)
     Returns (last-token logits (1, V), pool updated in place).
     """
     dev = tokens.device
@@ -103,7 +211,8 @@ def prefill_step(params, pool: PagePool, tokens: torch.Tensor,
 
     for i, p_l in enumerate(_layer_params(params, cfg)):
         h = layers.rms_norm(x, p_l["ln1"], cfg.norm_eps)
-        q, k, v = layers.attn_qkv(p_l["attn"], cfg, h, positions)
+        q, k, v = _qkv_lora(p_l["attn"], cfg, h, positions, lora,
+                            adapter_ids)
         _write_kv(pool, i, pidx, slot, rows, k[0], v[0])
         o = kops.paged_prefill(q, pool.k[i], pool.v[i], block_table, ctx1,
                                chunk1, impl=impl)
@@ -116,13 +225,16 @@ def prefill_step(params, pool: PagePool, tokens: torch.Tensor,
 # ---------------------------------------------------------------- decode
 def decode_batch(params, pool: PagePool, tokens: torch.Tensor,
                  positions: torch.Tensor, block_tables: torch.Tensor,
-                 active: torch.Tensor, *, cfg: ModelConfig, page_size: int,
-                 impl: str = "kernel") -> Tuple[torch.Tensor, PagePool]:
+                 active: torch.Tensor, lora: Optional[dict] = None,
+                 adapter_ids: Optional[torch.Tensor] = None, *,
+                 cfg: ModelConfig, page_size: int, impl: str = "kernel"
+                 ) -> Tuple[torch.Tensor, PagePool]:
     """One decode step for a batch.
 
     tokens: (B,) int32; positions: (B,) int32 next position (== current
     length); block_tables: (B, NB) int32; active: (B,) bool (padding
-    slots excluded; they get length 0).  Returns (logits (B, V), pool
+    slots excluded; they get length 0); lora, adapter_ids: the adapter
+    bank and (B,) slots (None: no LoRA).  Returns (logits (B, V), pool
     updated in place).
     """
     x = M.embed(params, cfg, tokens[:, None])
@@ -134,7 +246,8 @@ def decode_batch(params, pool: PagePool, tokens: torch.Tensor,
 
     for i, p_l in enumerate(_layer_params(params, cfg)):
         h = layers.rms_norm(x, p_l["ln1"], cfg.norm_eps)
-        q, k, v = layers.attn_qkv(p_l["attn"], cfg, h, positions[:, None])
+        q, k, v = _qkv_lora(p_l["attn"], cfg, h, positions[:, None], lora,
+                            adapter_ids)
         _write_kv(pool, i, pidx, slot, rows, k[:, 0], v[:, 0])
         o = kops.paged_attention(q[:, 0], pool.k[i], pool.v[i],
                                  block_tables, lengths, impl=impl)
@@ -148,7 +261,10 @@ def mixed_step(params, pool: PagePool,
                dec_tokens: torch.Tensor, dec_positions: torch.Tensor,
                dec_block_tables: torch.Tensor, dec_active: torch.Tensor,
                pre_tokens: torch.Tensor, pre_block_tables: torch.Tensor,
-               pre_ctx: torch.Tensor, pre_chunk: torch.Tensor, *,
+               pre_ctx: torch.Tensor, pre_chunk: torch.Tensor,
+               lora: Optional[dict] = None,
+               dec_adapter_ids: Optional[torch.Tensor] = None,
+               pre_adapter_ids: Optional[torch.Tensor] = None, *,
                cfg: ModelConfig, page_size: int, impl: str = "kernel"
                ) -> Tuple[torch.Tensor, torch.Tensor, PagePool]:
     """One fused continuous-batching step: B decode tokens + K prefill
@@ -159,6 +275,8 @@ def mixed_step(params, pool: PagePool,
     pre_tokens:       (K, S) chunk tokens (padded; ``pre_chunk`` valid)
     pre_block_tables: (K, NBp) int32; pre_ctx/pre_chunk: (K,) int32
                       (pre_chunk == 0 marks an idle prefill slot)
+    lora:             the adapter bank (None: no LoRA), with the slots
+                      dec_adapter_ids (B,) and pre_adapter_ids (K,)
     Returns (decode logits (B, V), prefill last-token logits (K, V),
     pool updated in place).  The token budget of the pass is B + K*S.
     """
@@ -191,7 +309,9 @@ def mixed_step(params, pool: PagePool,
 
     for i, p_l in enumerate(_layer_params(params, cfg)):
         h = layers.rms_norm(x, p_l["ln1"], cfg.norm_eps)
-        q, k, v = layers.attn_qkv(p_l["attn"], cfg, h, positions_flat[None])
+        q, k, v = _qkv_lora_mixed(p_l["attn"], cfg, h, positions_flat[None],
+                                  lora, dec_adapter_ids, pre_adapter_ids,
+                                  b, kk, s)
         _write_kv(pool, i, pidx, slot, rows, k[0], v[0])
         o_dec = kops.paged_attention(q[0, :b], pool.k[i], pool.v[i],
                                      dec_block_tables, dec_lengths,

@@ -1,20 +1,28 @@
 """ModelRunner: executes a ``ScheduleOutput`` on the PyTorch model, the
-counterpart of ``repro/engine/runner.py`` (no LoRA, speculation, async
-loop or page payloads yet).
+counterpart of ``repro/engine/runner.py`` (no speculation or async loop
+yet).
 
 The runner owns everything device-shaped: the params, the paged KV
-``PagePool`` (updated in place by every step) and the persistent host
-input buffers, allocated once and refilled per step.  The pool holds
-``num_pages + 1`` pages: the last is the scratch page that padding
-block-table entries point at.
+``PagePool`` (updated in place by every step), the high-density LoRA
+bank and the persistent host input buffers, allocated once and refilled
+per step.  The pool holds ``num_pages + 1`` pages: the last is the
+scratch page that padding block-table entries point at.
+
+It also owns the page *payload* side of the KV tiers: a page leaves the
+device as numpy ``(L, page, Hkv, D)`` K and V arrays, the JAX package's
+format (bf16 as ``tiers.BF16`` bit patterns, see there), so the host,
+SSD and distributed tiers hold the same payloads for both packages.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+import time
+import zlib
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core.kvcache.tiers import BF16
 from repro_torch.engine import paged_model as PM
 from repro_torch.engine.request import Request
 from repro_torch.engine.sampling import sample
@@ -23,6 +31,26 @@ from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def to_payload(page: torch.Tensor) -> np.ndarray:
+    """A page tensor -> a numpy array that owns its memory (a copy on the
+    CPU too: ``.numpy()`` of a CPU tensor would alias the pool, which the
+    next step overwrites in place, under a host-tier entry).  bfloat16
+    comes out as ``BF16`` bit patterns."""
+    page = page.to("cpu", copy=True)
+    if page.dtype == torch.bfloat16:
+        return page.view(torch.int16).numpy().view(BF16)
+    return page.numpy()
+
+
+def from_payload(a) -> torch.Tensor:
+    """A payload array -> a CPU tensor: ``BF16`` and ``ml_dtypes.bfloat16``
+    arrays (by dtype name) bit for bit as bfloat16, others as they are."""
+    a = np.ascontiguousarray(a)
+    if a.dtype == BF16 or a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 class ModelRunner:
@@ -39,6 +67,23 @@ class ModelRunner:
             cfg, seed, dtype, device)
         self.pool = PM.init_pool(cfg, ecfg.num_pages + 1, ecfg.page_size,
                                  dtype, device)  # +1: scratch page
+        self.lora = PM.init_lora(cfg, ecfg.max_adapters, ecfg.lora_rank,
+                                 dtype, device)
+        self._adapter_ids: Dict[str, int] = {}
+        self._free_adapter_slots = list(range(1, ecfg.max_adapters))
+        # adapter tiering (HBM bank <-> bounded host tier <-> artifact
+        # store): weights are a pure function of (engine seed, adapter
+        # NAME), never of the bank slot, so eviction is always safe
+        # (re-load is byte-identical) and slot reuse cannot leak
+        self._seed = seed
+        self._adapter_lru: Dict[str, int] = {}
+        self._lru_tick = 0
+        self._host_adapters: Dict[str, dict] = {}
+        self._host_adapter_slots = ecfg.host_adapter_slots
+        self.adapter_loads = 0          # non-resident registers paid
+        self.adapter_load_s = 0.0       # wall seconds stalled on them
+        self.adapter_evictions = 0      # LRU bank evictions
+        self.adapter_host_hits = 0      # loads served from the host tier
         # persistent host input buffers (allocated once, refilled per
         # step; block tables are sliced to the bucketed width in use)
         b, kk = ecfg.max_batch, ecfg.max_prefills
@@ -47,18 +92,125 @@ class ModelRunner:
         self._dec_pos = np.zeros(b, np.int32)
         self._dec_bts = np.full((b, nbmax), ecfg.num_pages, np.int32)
         self._dec_active = np.zeros(b, bool)
+        self._dec_aids = np.zeros(b, np.int32)
         # floor of one row: two-phase prefill writes row 0 even when
         # the mixed scheduler is configured with max_prefills=0
         kk1 = max(kk, 1)
         self._pre_toks = np.zeros((kk1, ecfg.chunk_size), np.int32)
         self._pre_ctx = np.zeros(kk1, np.int32)
         self._pre_chunk = np.zeros(kk1, np.int32)
+        self._pre_aids = np.zeros(kk1, np.int32)
         self._pre_bts = np.full((kk1, nbmax), ecfg.num_pages, np.int32)
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         """Copy a host buffer to the device (a copy on the CPU too: the
         buffer is refilled next step)."""
         return torch.from_numpy(a).to(self.device, copy=True)
+
+    # ------------------------------------------------------------- LoRA
+    def _adapter_seed(self, name: str) -> int:
+        """The 'artifact store': adapter weights derive from the NAME (and
+        the engine seed), so any tier can drop them and re-materialize
+        them byte-identically.  The port's own stream: its weights differ
+        from the JAX package's for the same name."""
+        return ((self._seed + 2) << 32) | (zlib.crc32(name.encode())
+                                           & 0x7FFFFFFF)
+
+    def _touch_adapter(self, name: str) -> None:
+        self._lru_tick += 1
+        self._adapter_lru[name] = self._lru_tick
+
+    def register_adapter(self, name: str, weights: Optional[dict] = None,
+                         pinned=()) -> int:
+        """Dynamic high-density LoRA registration.
+
+        When the bank is full, the least-recently-used resident adapter
+        not in ``pinned`` (adapters of in-flight batches) is evicted into
+        the bounded host tier.  Weights (tensors or float32 arrays of the
+        shapes ``PM.make_adapter`` gives) come from, in order: the
+        caller, the host tier, the artifact store
+        (:meth:`_adapter_seed`).  The wall time of a non-resident load
+        accumulates in ``adapter_load_s``."""
+        if name in self._adapter_ids:
+            self._touch_adapter(name)
+            return self._adapter_ids[name]
+        t0 = time.perf_counter()
+        if not self._free_adapter_slots:
+            victim = next(
+                (n for n in sorted(self._adapter_ids,
+                                   key=lambda a: self._adapter_lru.get(a, 0))
+                 if n not in pinned), None)
+            if victim is None:
+                raise RuntimeError(
+                    "adapter slots exhausted and every resident adapter "
+                    "is pinned by an in-flight batch")
+            self.unregister_adapter(victim)
+            self.adapter_evictions += 1
+        idx = self._free_adapter_slots.pop(0)
+        if weights is None:
+            host = self._host_adapters.pop(name, None)
+            if host is not None:
+                weights = host
+                self.adapter_host_hits += 1
+            else:
+                weights = PM.make_adapter(self.cfg, self.ecfg.lora_rank,
+                                          self._adapter_seed(name))
+        for k in self.lora:
+            self.lora[k][idx].copy_(torch.as_tensor(weights[k]))
+        if self.device.type == "cuda":      # the stall is the load's
+            torch.cuda.synchronize(self.device)
+        self._adapter_ids[name] = idx
+        self._touch_adapter(name)
+        self.adapter_loads += 1
+        self.adapter_load_s += time.perf_counter() - t0
+        return idx
+
+    def unregister_adapter(self, name: str) -> None:
+        idx = self._adapter_ids.pop(name, None)
+        if idx is None:
+            return
+        if self._host_adapter_slots > 0:
+            # LRU cascade: bank victims fall into the bounded host tier
+            # (copies: the slot is zeroed and reused below); host
+            # overflow drops to the artifact store (safe: weights are
+            # name-keyed, so re-load is byte-identical)
+            self._host_adapters[name] = {
+                k: self.lora[k][idx].to("cpu", copy=True) for k in self.lora}
+            while len(self._host_adapters) > self._host_adapter_slots:
+                self._host_adapters.pop(next(iter(self._host_adapters)))
+        self._adapter_lru.pop(name, None)
+        for t in self.lora.values():
+            t[idx].zero_()
+        self._free_adapter_slots.append(idx)
+
+    @property
+    def adapters(self) -> List[str]:
+        return sorted(self._adapter_ids)
+
+    @property
+    def adapter_ids(self) -> Dict[str, int]:
+        return self._adapter_ids
+
+    def _aid(self, req: Request) -> int:
+        if not req.lora_adapter:
+            return 0
+        idx = self._adapter_ids.get(req.lora_adapter)
+        if idx is None:
+            # loud: a non-resident adapter must queue at admission
+            # (Scheduler.adapter_ready), never silently serve base
+            raise RuntimeError(
+                f"request {req.request_id} reached the data plane with "
+                f"non-resident adapter {req.lora_adapter!r}")
+        self._touch_adapter(req.lora_adapter)
+        return idx
+
+    def _bank(self, *aids: np.ndarray) -> Optional[dict]:
+        """The bank for a step, or None when every row uses slot 0.  The
+        skip is exact: slot 0 is all zeros, so its deltas are exact zeros
+        and q + rope(0) = q, v + 0 = v in any dtype.  A step that mixes
+        slot 0 with other slots gathers every row, as the JAX package
+        does."""
+        return self.lora if any(a.any() for a in aids) else None
 
     # ---------------------------------------------------------- sampling
     def sample(self, logits: torch.Tensor, reqs: List[Request]
@@ -83,19 +235,23 @@ class ModelRunner:
             r.prompt_len + len(r.output_tokens)) for r in reqs),
             default=1))
         toks, pos, active = self._dec_toks, self._dec_pos, self._dec_active
+        aids = self._dec_aids
         bts = self._dec_bts[:, :nb]
         toks[:] = 0
         pos[:] = 0
         bts[:] = ecfg.num_pages             # scratch page
         active[:] = False
+        aids[:] = 0
         for i, r in enumerate(reqs):
             toks[i] = r.output_tokens[-1]
             pos[i] = r.prompt_len + len(r.output_tokens) - 1
             n = min(len(r.page_ids), nb)
             bts[i, :n] = r.page_ids[:n]
             active[i] = True
+            aids[i] = self._aid(r)
         return (self._dev(toks), self._dev(pos),
-                self._dev(np.ascontiguousarray(bts)), self._dev(active))
+                self._dev(np.ascontiguousarray(bts)), self._dev(active),
+                self._dev(aids))
 
     def _prefill_inputs(self, works: List[PrefillWork], s: int):
         ecfg = self.ecfg
@@ -105,12 +261,14 @@ class ModelRunner:
         else:                               # unchunked: dynamic width
             pre_toks = np.zeros((kk, s), np.int32)
         pre_ctx, pre_chunk = self._pre_ctx, self._pre_chunk
+        pre_aids = self._pre_aids
         nb_pre = self._bt_width(max((self._pages_for(w.start + w.chunk_len)
                                      for w in works), default=1))
         pre_bts = self._pre_bts[:, :nb_pre]
         pre_toks[:] = 0
         pre_ctx[:] = 0
         pre_chunk[:] = 0
+        pre_aids[:] = 0
         pre_bts[:] = ecfg.num_pages
         for i, w in enumerate(works):
             p, c = w.req, w.chunk_len
@@ -119,27 +277,32 @@ class ModelRunner:
             pre_chunk[i] = c
             n = min(len(p.page_ids), nb_pre)
             pre_bts[i, :n] = p.page_ids[:n]
+            pre_aids[i] = self._aid(p)
         return (self._dev(pre_toks), self._dev(pre_ctx),
                 self._dev(pre_chunk),
-                self._dev(np.ascontiguousarray(pre_bts)))
+                self._dev(np.ascontiguousarray(pre_bts)),
+                self._dev(pre_aids))
 
     # ---------------------------------------------------------- execute
     def run_mixed(self, out: ScheduleOutput
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One fused decode+prefill pass; returns (dec_logits, pre_logits)."""
-        pre_toks, pre_ctx, pre_chunk, pre_bts = self._prefill_inputs(
-            out.prefills, out.pad_len)
-        toks, pos, bts, active = self._decode_inputs(out.decode)
+        pre_toks, pre_ctx, pre_chunk, pre_bts, pre_aids = \
+            self._prefill_inputs(out.prefills, out.pad_len)
+        toks, pos, bts, active, aids = self._decode_inputs(out.decode)
         dec_logits, pre_logits, self.pool = PM.mixed_step(
             self.params, self.pool, toks, pos, bts, active, pre_toks,
-            pre_bts, pre_ctx, pre_chunk, cfg=self.cfg,
+            pre_bts, pre_ctx, pre_chunk,
+            self._bank(self._dec_aids, self._pre_aids), aids, pre_aids,
+            cfg=self.cfg,
             page_size=self.ecfg.page_size, impl=self.ecfg.impl)
         return dec_logits, pre_logits
 
     def run_decode(self, reqs: List[Request]) -> torch.Tensor:
-        toks, pos, bts, active = self._decode_inputs(reqs)
+        toks, pos, bts, active, aids = self._decode_inputs(reqs)
         logits, self.pool = PM.decode_batch(
-            self.params, self.pool, toks, pos, bts, active, cfg=self.cfg,
+            self.params, self.pool, toks, pos, bts, active,
+            self._bank(self._dec_aids), aids, cfg=self.cfg,
             page_size=self.ecfg.page_size, impl=self.ecfg.impl)
         return logits
 
@@ -158,10 +321,12 @@ class ModelRunner:
         bt[:] = ecfg.num_pages              # scratch page
         n = min(len(req.page_ids), nb)
         bt[0, :n] = req.page_ids[:n]
+        aid = np.array([self._aid(req)], np.int32)
         logits, self.pool = PM.prefill_step(
             self.params, self.pool, self._dev(np.ascontiguousarray(toks)),
             self._dev(np.ascontiguousarray(bt)), work.start, c,
-            cfg=self.cfg, page_size=ecfg.page_size, impl=ecfg.impl)
+            self._bank(aid), self._dev(aid), cfg=self.cfg,
+            page_size=ecfg.page_size, impl=ecfg.impl)
         return logits
 
     # ------------------------------------------------------- pool payloads
@@ -171,3 +336,18 @@ class ModelRunner:
         capacity accounting and transfer counters charge."""
         k = self.pool.k
         return int(2 * k[:, 0].numel() * k.element_size())
+
+    def page_payload(self, pid: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Materialize one page's (k, v) as numpy ``(L, page, Hkv, D)``
+        arrays for a pool publish or a host-tier offload: the
+        device-to-host copy the scheduler's contains() gate avoids for
+        blocks the pool already holds."""
+        return (to_payload(self.pool.k[:, pid]),
+                to_payload(self.pool.v[:, pid]))
+
+    def write_remote_page(self, pid: int, k_page, v_page) -> None:
+        """Install a page payload (from the distributed pool or a host or
+        SSD tier) into local page ``pid``, in place, cast to the pool's
+        dtype."""
+        self.pool.k[:, pid].copy_(from_payload(k_page))
+        self.pool.v[:, pid].copy_(from_payload(v_page))

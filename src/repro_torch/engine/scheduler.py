@@ -82,7 +82,8 @@ import collections
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
 
-from repro_torch.core.kvcache import KVPoolError, payload_nbytes
+from repro_torch.core.kvcache.pool import KVPoolError
+from repro_torch.core.kvcache.tiers import payload_nbytes
 from repro_torch.engine.page_table import PageAllocator, chunk_hashes
 from repro_torch.engine.request import Request, RequestState
 from repro_torch.engine.speculative import DraftController

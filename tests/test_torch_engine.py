@@ -110,13 +110,31 @@ def test_allocating_entry_points_default_to_the_card(weights, entry):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("host_cache_gb", 1.0), ("ssd_cache_gb", 1.0), ("spec_tokens", 2),
-    ("async_loop", True), ("role", "prefill")])
+    ("spec_tokens", 2), ("async_loop", True)])
 def test_unported_features_are_refused(field, value):
     cfg = get_reduced_config("qwen3-0.6b")
     with pytest.raises(NotImplementedError):
         InferenceEngine(cfg, EngineConfig(**ECFG, **{field: value}),
                         device="cpu")
+
+
+@pytest.mark.parametrize("field,value,attr", [
+    ("host_cache_gb", 1.0, "host_pool"), ("ssd_cache_gb", 1.0, "ssd_pool"),
+    ("role", "prefill", None)])
+def test_ported_tier_and_role_features_construct(tmp_path, field, value,
+                                                 attr):
+    """The KV tiers and P/D roles, refused before they were ported, now
+    build an engine with the tier attached (the SSD tier sits under a
+    host tier, as in the JAX engine)."""
+    cfg = get_reduced_config("qwen3-0.6b")
+    kw = {field: value}
+    if field == "ssd_cache_gb":
+        kw.update(host_cache_gb=0.01, ssd_dir=str(tmp_path))
+    eng = InferenceEngine(cfg, EngineConfig(**ECFG, **kw), device="cpu")
+    if attr is not None:
+        assert getattr(eng, attr) is not None
+    else:
+        assert eng.sched.scfg.role == value
 
 
 def test_kernel_impl_required_on_cuda_and_requests_checked(weights):
@@ -126,8 +144,9 @@ def test_kernel_impl_required_on_cuda_and_requests_checked(weights):
                         params=params, device="cuda")
     eng = InferenceEngine(cfg, EngineConfig(**ECFG), params=params,
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        eng.submit(Request(prompt_tokens=prompts[0], lora_adapter="a"))
+    # a request naming an adapter is served: the adapter is autoloaded
+    eng.submit(Request(prompt_tokens=prompts[0], lora_adapter="a"))
+    assert eng.adapters == ["a"]
     with pytest.raises(NotImplementedError, match="temperature"):
         eng.submit(Request(prompt_tokens=prompts[0],
                            sampling=SamplingParams(temperature=0.7)))
