@@ -18,6 +18,17 @@ Phases, each printing one JSON line:
             length 0 and 1, split boundaries, G 1 to 16, D 96 and 256,
             pages 8 and 64), in float32 also against the plain mirror of
             the split, and called twice for identical bits;
+            ``paged_prefill`` also at speculative verify shapes through
+            ``ops.paged_verify`` (lanes of 2 and 5 rows padded to 8,
+            contexts ending on and across page boundaries, idle lanes
+            zero, G 2 and 16, float32 and bf16);
+   sampling the port's threefry PRNG on the card bit for bit against
+            values recorded from jax 0.9.0 (``row_keys``, ``split``,
+            ``uniform``, ``gumbel``), the XLA-rounded logs of every
+            uniform value and exp over softmax's range against the CPU,
+            and ``sample`` at temperature 0.8 (no top-p, 0.5, 0.9 and
+            1.0, whose token-0 rows included) against the JAX sampler's
+            recorded tokens and the CPU, at V 64 and 151,936; its time;
 4. step     each full-width qwen3-0.6b step function (mixed_step,
             prefill_step, decode_batch) in float32 with the kernels and
             again with the plain versions: logits and pools must agree;
@@ -37,6 +48,17 @@ Phases, each printing one JSON line:
             token-identical to the plain run (the int8 wire: finishes, at
             the compressed size); one page's payload off the card and
             back, timed;
+   spec     speculative decoding at qwen3-0.6b's full width: (a) the
+            float32 ``spec_decode_step`` and ``spec_mixed_step`` with a
+            bank of 4 adapters, kernels against plain versions, logits
+            and pools, 28 and 56 ``paged_prefill`` launches and no
+            ``paged_attention``; (c) 8 float32 requests whose prompts
+            repeat a random 16-64-token segment, speculation off and on
+            (``spec_tokens=4``), at temperature 0 and at 0.8 with top-p
+            0.9 and a seed per request: the same tokens, exact launch
+            counts by kind of step, no page leak; (d) 16 such bf16
+            requests (prompts 128-768), off and on: tok/s, TTFT, drafts
+            accepted and the share of tokens equal to the run without;
 8. slot step  full-width gemma3-4b in float32: ``prefill`` of a
             1500-token prompt and 4 ``decode_step``s, with the
             ``flash_prefill`` kernel and with its plain version: logits
@@ -53,8 +75,9 @@ Phases, each printing one JSON line:
             trace;
 11. profile host wall and device time, by kind of kernel
             (torch.profiler), of one full-width bf16 paged mixed_step
-            (without and with 4 adapters), one gemma3-4b slot prefill of
-            2048 tokens and one 4-slot decode step.
+            (without and with 4 adapters), one decode_batch of 8 rows
+            and one spec_decode_step of 8 lanes of 5 rows, one gemma3-4b
+            slot prefill of 2048 tokens and one 4-slot decode step.
 
 Then the line ``{"kernels": [...]}``, the nvidia-smi line, and as the
 last line ``{"ok": true, "device": {...}}``.  ``--only kernels,timing``
@@ -107,6 +130,49 @@ TIER_MAX_NEW = 16
 SLOT_ECFG = dict(max_slots=4, max_len=4096, dtype="bfloat16")
 SLOT_REQUESTS, SLOT_MAX_NEW, SLOT_PROMPTS = 8, 32, (1100, 3000)
 SLOT_STEP_PROMPT, SLOT_STEP_DECODES = 1500, 4
+# speculative decoding: 4 drafts a decode row (lanes of 5 rows); the
+# float32 serve of 8 requests (prompts 96-256 tokens) and the bf16 one
+# of 16 (PROMPT_RANGE), each prompt a random 16-64-token segment repeated
+SPEC_TOKENS, SPEC_F32_REQUESTS, SPEC_F32_PROMPTS = 4, 8, (96, 256)
+SPEC_SEGMENT = (16, 64)
+SPEC_SAMPLING = dict(temperature=0.8, top_p=0.9)
+# jax.random values recorded from jax 0.9.0 on the CPU
+# (jax_threefry_partitionable=True), which the card has no way to run:
+# row_keys(seed, position), split(PRNGKey(s), 3), and the float32 bits
+# of uniform and gumbel(PRNGKey(s), (6,))
+JAX_ROW_KEYS = [(1, 5, [3006591476, 2914868775]),
+                (0, 0, [4165894930, 804218099]),
+                (7, 1000, [1831534255, 1091784610]),
+                (123456, 151935, [2147324095, 54635239]),
+                (2147483647, 77, [2735158544, 3609530407])]
+JAX_SPLITS = {0: [[1797259609, 2579123966], [928981903, 3453687069],
+                  [4146024105, 2718843009]],
+              42: [[1832780943, 270669613], [64467757, 2916123636],
+                   [2465931498, 255383827]]}
+JAX_UNIFORM_BITS = {0: [1064475214, 1064993846, 1051337244, 1055913296,
+                        1058137146, 1042905504],
+                    42: [1056585764, 1059981104, 1058915320, 1057988288,
+                         1055308516, 1058405198]}
+JAX_GUMBEL_BITS = {0: [1077614729, 1081428380, 3183898615, 1049490596,
+                       1058234552, 3205909564],
+                   42: [1051397706, 1064548236, 1060748383, 1057772792,
+                        1047019407, 1059080482]}
+# repro.engine.sampling.sample's tokens at temperature 0.8 with row keys
+# (seed i, position 17) over logits 4 * gumbel(split(PRNGKey(2024),
+# 8)[i], (V,)), by "V/top_p"; at top_p 1.0 some rows draw token 0 (the
+# reference's fault, which the port reproduces)
+JAX_SAMPLES = {
+    "64/None": [32, 16, 57, 58, 45, 4, 42, 36],
+    "64/0.5": [32, 16, 57, 58, 45, 4, 42, 36],
+    "64/0.9": [32, 16, 57, 58, 45, 4, 42, 36],
+    "64/1.0": [0, 16, 0, 0, 45, 4, 42, 36],
+    "151936/None": [9225, 7656, 144488, 30491, 141411, 140739, 104416,
+                    78432],
+    "151936/0.5": [9225, 96180, 144488, 30491, 141411, 140739, 104416,
+                   78432],
+    "151936/0.9": [9225, 7656, 144488, 30491, 141411, 140739, 104416,
+                   78432],
+    "151936/1.0": [9225, 0, 144488, 0, 141411, 140739, 104416, 78432]}
 # full-width f32 step: kernel logits vs plain logits, relative to the
 # logits' scale.  The two differ only in the order of the attention's
 # float32 sums (~1e-6 relative per call); 28 layers of residual updates
@@ -187,8 +253,8 @@ def check_kernels(torch, ops_mod):
            "flash_prefill": (ops_mod.flash_attention, ref.flash_prefill_ref)}
 
     def compare(kernel, args, dtype, tol_idx, label, extra=None,
-                plain_fn=None, **kw):
-        out = fns[kernel][0](*args, **kw)
+                plain_fn=None, kernel_fn=None, **kw):
+        out = (kernel_fn or fns[kernel][0])(*args, **kw)
         plain = (plain_fn or fns[kernel][1])(*args, **kw)
         torch.cuda.synchronize()
         tol = TOL[name[dtype]][tol_idx]
@@ -388,6 +454,25 @@ def check_kernels(torch, ops_mod):
                                 outs[0].float() - outs[1].float()).abs()
                             .max().item(), tol=0.0,
                             ok=bool(torch.equal(outs[0], outs[1]))))
+    # paged_prefill at speculative verify shapes, through
+    # ops.paged_verify (lanes of 1 + drafts rows, padded to 8): 4 lanes,
+    # one ending on a page boundary, one crossing one, one idle (zeros),
+    # one at context 0, on a generator of their own
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    for dt in (f32, bf16):
+        for s_, h, hkv, d in [(2, 16, 8, 64), (5, 16, 8, 64),
+                              (5, 32, 2, 128), (2, 32, 2, 128)]:
+            ctx = [48 - s_, 63, 20, 0]          # page 16: 48 ends page 3
+            chunk = [s_, s_, 0, max(s_ - 1, 1)]
+            compare("paged_prefill",
+                    prefill_case(torch, gen, 4, h, hkv, d, 16, s_, 8, dt,
+                                 ctx, chunk), dt, 1,
+                    f"verify lanes S{s_} G{h // hkv} H{h} Hkv{hkv} D{d} "
+                    f"ctx {ctx} rows {chunk}",
+                    kernel_fn=ops_mod.paged_verify,
+                    extra=lambda o: bool((o[2] == 0).all()
+                                         and (o[0] != 0).any()))
     return results
 
 
@@ -943,6 +1028,406 @@ def tiers(torch, cfg, pa, pp):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ sampling
+def sampling(torch):
+    """The sampling phase: the port's PRNG on the card bit for bit against
+    jax's recorded values; the XLA-rounded float steps against the CPU;
+    ``sample`` against the JAX sampler's recorded tokens and the CPU."""
+    from repro_torch.engine import sampling as S
+    dev, mask = "cuda", 0xFFFFFFFF
+
+    def check(name, ok, **fields):
+        emit("sampling", check=name, ok=bool(ok), **fields)
+        if not ok:
+            raise AssertionError(f"sampling: {name} failed")
+
+    def bits(t):
+        return [int(x) & mask for x in t.view(torch.int32).tolist()]
+
+    for seed, pos, want in JAX_ROW_KEYS:
+        got = S.row_keys(torch.tensor([seed], device=dev),
+                         torch.tensor([pos], device=dev))[0].tolist()
+        check("row_keys", got == want, seed=seed, position=pos, key=got)
+    for seed, want in JAX_SPLITS.items():
+        key = S.prng_key(seed, dev)
+        got = S.split(key, 3).tolist()
+        check("split", got == want, seed=seed, keys=got)
+        got = bits(S.uniform(key, 6))
+        check("uniform bits", got == JAX_UNIFORM_BITS[seed], seed=seed,
+              bits=got)
+        got = bits(S.gumbel(key, 6))
+        check("gumbel bits", got == JAX_GUMBEL_BITS[seed], seed=seed,
+              bits=got)
+    # every uniform value (2**23) through both logs, and exp over
+    # softmax's range down to where it flushes, on the card vs the CPU
+    m = torch.arange(1 << 23, dtype=torch.int32)
+    u = torch.clamp_min((m | 0x3F800000).view(torch.float32) - 1.0,
+                        S._TINY)
+    g_cpu, g_dev = (-S._log(-S._log(x)) for x in (u, u.to(dev)))
+    check("gumbel logs, all 2**23 uniform values, card == CPU",
+          torch.equal(g_cpu.view(torch.int32),
+                      g_dev.cpu().view(torch.int32)), values=u.numel())
+    x = -S.uniform(S.prng_key(5), 1 << 22) * 104.0
+    check("exp over [-104, 0], card == CPU",
+          torch.equal(S._exp(x).view(torch.int32),
+                      S._exp(x.to(dev)).cpu().view(torch.int32)),
+          values=x.numel())
+    keys = S.row_keys(torch.arange(8), torch.full((8,), 17))
+    for v in (64, 151936):
+        logits = 4.0 * S.gumbel(S.split(S.prng_key(2024, dev), 8), v)
+        for top_p in (None, 0.5, 0.9, 1.0):
+            tp = None if top_p is None else [top_p] * 8
+            got = S.sample(logits, None, [0.8] * 8, top_p=tp,
+                           keys=keys.to(dev))
+            cpu = S.sample(logits.cpu(), None, [0.8] * 8, top_p=tp,
+                           keys=keys)
+            want = JAX_SAMPLES[f"{v}/{top_p}"]
+            zero_rows = [i for i, (a, b) in enumerate(zip(
+                want, JAX_SAMPLES[f"{v}/None"])) if a == 0 != b]
+            check("sample", got.tolist() == want == cpu.tolist()
+                  and got.device.type == "cuda", vocab=v, temperature=0.8,
+                  top_p=top_p, tokens=got.tolist(),
+                  top_p_fault_rows=zero_rows)
+        ms = {str(tp): time_ms(torch, lambda: S.sample(
+            logits, None, [0.8] * 8, top_p=None if tp is None else [tp] * 8,
+            keys=keys.to(dev)), iters=5, warmup=1) for tp in (None, 0.9)}
+        greedy_ms = time_ms(torch, lambda: S.sample(
+            logits, None, [0.0] * 8, keys=keys.to(dev)), iters=20)
+
+        def sampled():
+            S.sample(logits, None, [0.8] * 8, top_p=[0.9] * 8,
+                     keys=keys.to(dev))
+            torch.cuda.synchronize()
+        emit("sampling_time", vocab=v, rows=8, ms_by_top_p=ms,
+             greedy_ms=greedy_ms, profile_top_p_0_9=device_profile(
+                 torch, sampled, 3), card=nvidia_smi())
+
+
+# ------------------------------------------------------------ speculation
+def spec_steps(torch, cfg, pa, pp):
+    """The spec phase (a): the float32 ``spec_decode_step`` (8 lanes of 5
+    rows: 5, 5, 3, 1, 5, idle, 2, 5 valid) and ``spec_mixed_step`` (the
+    same lanes and chunks of 64 and 37) at full width with a bank of 4
+    adapters, with the kernels and with the plain versions: logits and
+    pools must agree, and each step launch ``paged_prefill`` once a
+    layer for the lanes (and once more for the chunks) and never
+    ``paged_attention``."""
+    from repro_torch.engine import paged_model as PM
+    params, pool, a, page = step_inputs(torch, cfg, torch.float32)
+    sd, b = 1 + SPEC_TOKENS, a["dec_tokens"].shape[0]
+    nb = a["dec_block_tables"].shape[1]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    i32 = dict(dtype=torch.int32, device="cuda")
+    lanes = dict(
+        spec_tokens=torch.randint(0, cfg.vocab_size, (b, sd), generator=gen,
+                                  device="cuda").to(torch.int32),
+        spec_ctx=torch.clamp(a["dec_positions"], max=nb * page - sd),
+        spec_len=torch.tensor([5, 5, 3, 1, 5, 0, 2, 5], **i32),
+        spec_block_tables=a["dec_block_tables"])
+    chunks = {k: a[k] for k in ("pre_tokens", "pre_block_tables", "pre_ctx",
+                                "pre_chunk")}
+    bank = PM.init_lora(cfg, LORA_ADAPTERS + 1, LORA_RANK, torch.float32,
+                        "cuda")
+    for i in range(1, LORA_ADAPTERS + 1):
+        for k, w in PM.make_adapter(cfg, LORA_RANK, seed=100 + i).items():
+            bank[k][i].copy_(w)
+    lane_ids = torch.tensor([1, 2, 0, 3, 4, 0, 1, 0], **i32)
+    pre_ids = torch.tensor([3, 0], **i32)
+    kw = dict(cfg=cfg, page_size=page)
+
+    def decode_step(p, impl):
+        return PM.spec_decode_step(
+            params, p, **lanes, lora=bank, adapter_ids=lane_ids, impl=impl,
+            **kw)[0].reshape(b * sd, -1)
+
+    def mixed_step(p, impl):
+        return torch.cat([x.reshape(-1, cfg.vocab_size)
+                          for x in PM.spec_mixed_step(
+                              params, p, **lanes, **chunks, lora=bank,
+                              spec_adapter_ids=lane_ids,
+                              pre_adapter_ids=pre_ids, impl=impl,
+                              **kw)[:2]])
+    steps = {"spec_decode_step": (cfg.n_layers, decode_step),
+             "spec_mixed_step": (2 * cfg.n_layers, mixed_step)}
+    for step, (want_pp, run) in steps.items():
+        outs, counts = {}, {}
+        for impl in ("kernel", "ref"):
+            p = PM.PagePool(pool.k.clone(), pool.v.clone())
+            torch.cuda.synchronize()
+            pa.launches = pp.launches = 0
+            outs[impl] = (run(p, impl).float(), p)
+            torch.cuda.synchronize()
+            counts[impl] = {"paged_attention": pa.launches,
+                            "paged_prefill": pp.launches}
+        (lk, pk), (lr, prf) = outs["kernel"], outs["ref"]
+        scale = lr.abs().max().item()
+        err = (lk - lr).abs().max().item()
+        pool_err = max((pk.k - prf.k).abs().max().item(),
+                       (pk.v - prf.v).abs().max().item())
+        pool_scale = prf.k.abs().max().item()
+        want = {"paged_attention": 0, "paged_prefill": want_pp}
+        ok = (bool(torch.isfinite(lk).all()) and err <= STEP_REL_TOL * scale
+              and pool_err <= STEP_REL_TOL * pool_scale
+              and counts["kernel"] == want
+              and counts["ref"] == dict.fromkeys(want, 0))
+        emit("spec_step", step=step, model=cfg.name, dtype="float32",
+             lanes=b, lane_rows=sd, spec_len=lanes["spec_len"].tolist(),
+             lane_adapter_ids=lane_ids.tolist(), logits_rows=lk.shape[0],
+             logits_max_abs=scale, max_abs_err=err,
+             pool_max_abs_err=pool_err, rel_tol=STEP_REL_TOL,
+             launches=counts["kernel"], expected_launches=want, ok=ok)
+        if not ok:
+            raise AssertionError(f"full-width {step}: kernel and plain "
+                                 "disagree, or the launches are off")
+        del outs
+    del params, pool, bank
+
+
+def repeating_prompts(rng, n, lengths, vocab):
+    """``n`` prompts of ``lengths`` tokens, each a random segment of
+    16-64 tokens repeated: the n-gram drafter finds continuations."""
+    out = []
+    for length in rng.integers(lengths[0], lengths[1] + 1, n):
+        seg = rng.integers(0, vocab, int(rng.integers(
+            SPEC_SEGMENT[0], SPEC_SEGMENT[1] + 1))).tolist()
+        out.append((seg * (int(length) // len(seg) + 1))[:int(length)])
+    return out
+
+
+def spec_serve_once(torch, cfg, ecfg, prompts, samplings, pa, pp):
+    """One serve of ``prompts`` (32 new tokens each, a seed each, request
+    i sampled with ``samplings[i]``) on a fresh engine, the first
+    request alone for a step, with the paged kernels' counts set to 0
+    just before and read just after.  Records the kind of every step the
+    runner ran, the tokens emitted by speculative passes, the rows at
+    temperature > 0 that those passes sampled, and the top-2 logit gap
+    of every row that sampled a token, by (request, position)."""
+    from repro_torch.engine import (EngineConfig, InferenceEngine, Request,
+                                    SamplingParams)
+    eng = InferenceEngine(cfg, EngineConfig(**ecfg), seed=0, device="cuda")
+    reqs = [Request(prompt_tokens=list(p), sampling=SamplingParams(
+        max_new_tokens=MAX_NEW, seed=100 + i, **samp))
+        for i, (p, samp) in enumerate(zip(prompts, samplings))]
+    rid = {r.request_id: i for i, r in enumerate(reqs)}
+    kinds = dict.fromkeys(("decode", "prefill", "mixed", "spec_decode",
+                           "spec_mixed"), 0)
+    gaps, spec_tokens, spec_sampled = {}, [0], [0]
+    r_ = eng.runner
+    orig = {n: getattr(r_, n) for n in ("run_decode", "run_prefill",
+                                         "run_mixed", "run_spec", "sample",
+                                         "verify_drafts")}
+
+    def kind(name, fn):
+        def run(out, *args):
+            key = name
+            if name == "spec":
+                key = ("spec_mixed" if any(w.chunk_len for w in out.prefills)
+                       else "spec_decode")
+            kinds[key] += 1
+            return fn(out, *args)
+        return run
+
+    def gap_rows(logits):
+        top = torch.topk(logits.float(), 2, dim=-1).values
+        return (top[..., 0] - top[..., 1]).tolist()
+
+    def sample(logits, rs, positions=None):
+        for r, g, pos in zip(rs, gap_rows(logits), positions or []):
+            gaps[(rid[r.request_id], pos)] = (sum(kinds.values()), g)
+        return orig["sample"](logits, rs, positions)
+
+    def verify(spec_logits, rs, spec):
+        spec_sampled[0] += sum(r.sampling.temperature > 0 for r in rs)
+        for r, g in zip(rs, gap_rows(spec_logits)):
+            base = r.prompt_len + len(r.output_tokens)
+            for j, gj in enumerate(g):
+                gaps[(rid[r.request_id], base + j)] = (
+                    sum(kinds.values()), gj)
+        return orig["verify_drafts"](spec_logits, rs, spec)
+
+    for name in ("decode", "prefill", "mixed", "spec"):
+        setattr(r_, f"run_{name}", kind(name, orig[f"run_{name}"]))
+    r_.sample, r_.verify_drafts = sample, verify
+    on_spec = eng.sched.on_spec_batch
+
+    def counting_on_spec(*args):
+        n = on_spec(*args)
+        spec_tokens[0] += n
+        return n
+    eng.sched.on_spec_batch = counting_on_spec
+    torch.cuda.synchronize()
+    pa.launches = pp.launches = 0
+    t0 = time.perf_counter()
+    eng.submit(reqs[0])
+    eng.step()
+    for r in reqs[1:]:
+        eng.submit(r)
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"paged_attention": pa.launches, "paged_prefill": pp.launches}
+    n = cfg.n_layers
+    want = {"paged_attention": n * (kinds["decode"] + kinds["mixed"]),
+            "paged_prefill": n * (kinds["prefill"] + kinds["mixed"]
+                                  + kinds["spec_decode"])
+            + 2 * n * kinds["spec_mixed"]}
+    m = eng.metrics()
+    out = dict(tokens=[list(r.output_tokens) for r in reqs],
+               prompt_lens=[r.prompt_len for r in reqs],
+               finished=sum(r.state.name == "FINISHED"
+                            and len(r.output_tokens) == MAX_NEW
+                            for r in reqs),
+               kinds=kinds, launches=launches, want=want, wall_s=wall,
+               ttft=[r.ttft for r in reqs], free_pages=eng.alloc.num_free,
+               num_pages=eng.alloc.num_pages,
+               drafted=m.spec_drafted_tokens,
+               accepted=m.spec_accepted_tokens, spec_rows=m.spec_steps,
+               spec_pass_tokens=spec_tokens[0],
+               spec_sampled_rows=spec_sampled[0], gaps=gaps)
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def first_difference(off, on):
+    """(request, token index) of the first token that differs, or None."""
+    for i, (a, b) in enumerate(zip(off["tokens"], on["tokens"])):
+        for j, (x, y) in enumerate(zip(a, b)):
+            if x != y:
+                return i, j
+    return None
+
+
+def spec_run_fields(run):
+    passes = run["kinds"]["spec_decode"] + run["kinds"]["spec_mixed"]
+    gen_tokens = sum(len(t) for t in run["tokens"])
+    return dict(
+        finished=run["finished"], free_pages=run["free_pages"],
+        num_pages=run["num_pages"], steps=run["kinds"],
+        launches=run["launches"], expected_launches=run["want"],
+        drafted_tokens=run["drafted"], accepted_tokens=run["accepted"],
+        drafting_rows=run["spec_rows"], spec_passes=passes,
+        rows_at_temperature_in_spec_passes=run["spec_sampled_rows"],
+        tokens_per_spec_pass=(run["spec_pass_tokens"] / passes
+                              if passes else None),
+        generated_tokens=gen_tokens, wall_s=run["wall_s"],
+        output_tokens_per_s=gen_tokens / run["wall_s"],
+        mean_ttft_s=sum(run["ttft"]) / len(run["ttft"]))
+
+
+def spec_serve(torch, cfg, pa, pp):
+    """The spec phase (c) and (d): float32 serves, speculation off and
+    on: all requests greedy, all at temperature 0.8 (top-p 0.9, a seed
+    each), and half of each, whose sampled rows ride the passes the
+    greedy rows' drafts start (random weights sample near-uniformly at
+    0.8, so those rows rarely find a draft of their own): the same
+    tokens, exact launches; then the bf16 serve off and on, measured."""
+    import numpy as np
+    rng = np.random.default_rng(12)
+    n = SPEC_F32_REQUESTS
+    prompts = repeating_prompts(rng, n, SPEC_F32_PROMPTS, cfg.vocab_size)
+    smi = nvidia_smi()
+    f32 = dict(SERVE_ECFG, dtype="float32")
+    for label, samplings, need in (
+            ("greedy", [{}] * n, "passes"),
+            ("temperature 0.8", [SPEC_SAMPLING] * n, None),
+            ("greedy and temperature 0.8 rows",
+             [{} if i % 2 == 0 else SPEC_SAMPLING for i in range(n)],
+             "sampled rows in passes")):
+        runs = {spec: spec_serve_once(torch, cfg, dict(f32, spec_tokens=spec),
+                                      prompts, samplings, pa, pp)
+                for spec in (0, SPEC_TOKENS)}
+        off, on = runs[0], runs[SPEC_TOKENS]
+        diff = first_difference(off, on)
+        exercised = {None: True,
+                     "passes": on["kinds"]["spec_decode"] > 0,
+                     "sampled rows in passes": on["spec_sampled_rows"] > 0
+                     }[need]
+        for spec, run in runs.items():
+            ok = (run["finished"] == SPEC_F32_REQUESTS
+                  and run["free_pages"] == run["num_pages"]
+                  and run["launches"] == run["want"] and diff is None
+                  and (spec == 0 or exercised))
+            emit("spec_serve", model=cfg.name, dtype="float32",
+                 sampling=label, spec_tokens=spec,
+                 requests=SPEC_F32_REQUESTS,
+                 prompt_tokens=sum(run["prompt_lens"]),
+                 same_tokens_as_spec_off=diff is None,
+                 **spec_run_fields(run), card=smi, ok=ok)
+        if diff is not None:
+            i, j = diff
+            pos = off["prompt_lens"][i] + j
+            emit("spec_mismatch", sampling=label, request=i, token=j,
+                 position=pos, spec_off=off["tokens"][i][j],
+                 spec_on=on["tokens"][i][j],
+                 spec_off_step_and_top2_gap=off["gaps"].get((i, pos)),
+                 spec_on_step_and_top2_gap=on["gaps"].get((i, pos)))
+        if not all(r["finished"] == SPEC_F32_REQUESTS
+                   and r["free_pages"] == r["num_pages"]
+                   and r["launches"] == r["want"] for r in runs.values()) \
+                or diff is not None or not exercised:
+            raise AssertionError(f"float32 spec serve ({label}) failed "
+                                 "its checks")
+    # bf16, 16 requests: measured, identity not required (verify lanes
+    # and decode rows take different kernels)
+    rng = np.random.default_rng(13)
+    prompts = repeating_prompts(rng, N_REQUESTS, PROMPT_RANGE,
+                                cfg.vocab_size)
+    runs = {spec: spec_serve_once(torch, cfg, dict(SERVE_ECFG,
+                                                   spec_tokens=spec),
+                                  prompts, [{}] * N_REQUESTS, pa, pp)
+            for spec in (0, SPEC_TOKENS)}
+    off = runs[0]
+    for spec, run in runs.items():
+        same = sum(x == y for a, b in zip(off["tokens"], run["tokens"])
+                   for x, y in zip(a, b))
+        ok = (run["finished"] == N_REQUESTS
+              and run["free_pages"] == run["num_pages"]
+              and run["launches"] == run["want"])
+        emit("spec_serve", model=cfg.name, dtype="bfloat16",
+             sampling="greedy", spec_tokens=spec, requests=N_REQUESTS,
+             prompt_tokens=sum(run["prompt_lens"]),
+             share_of_tokens_equal_to_spec_off=same / (N_REQUESTS * MAX_NEW),
+             **spec_run_fields(run), card=smi, ok=ok)
+        if not ok:
+            raise AssertionError("bf16 spec serve failed its checks")
+
+
+def profile_spec(torch, cfg):
+    """Phase 11: one full-width bf16 ``decode_batch`` of 8 rows and one
+    ``spec_decode_step`` of the same 8 rows as lanes of 5 (4 drafts
+    each), each ended by a synchronize."""
+    from repro_torch.engine import paged_model as PM
+    params, pool, a, page = step_inputs(torch, cfg, torch.bfloat16)
+    sd, b = 1 + SPEC_TOKENS, a["dec_tokens"].shape[0]
+    nb = a["dec_block_tables"].shape[1]
+    active = torch.ones(b, dtype=torch.bool, device="cuda")
+    ctx = torch.clamp(a["dec_positions"], max=nb * page - sd)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (b, sd), generator=gen,
+                         device="cuda").to(torch.int32)
+    slen = torch.full((b,), sd, dtype=torch.int32, device="cuda")
+
+    def decode():
+        PM.decode_batch(params, pool, toks[:, 0], ctx, a["dec_block_tables"],
+                        active, cfg=cfg, page_size=page)
+        torch.cuda.synchronize()
+
+    def spec():
+        PM.spec_decode_step(params, pool, toks, ctx, slen,
+                            a["dec_block_tables"], cfg=cfg, page_size=page)
+        torch.cuda.synchronize()
+
+    emit("profile", step="decode_batch", model=cfg.name, dtype="bfloat16",
+         rows=b, **device_profile(torch, decode, 10))
+    emit("profile", step="spec_decode_step", model=cfg.name,
+         dtype="bfloat16", lanes=b, lane_rows=sd,
+         **device_profile(torch, spec, 10))
+    del params, pool
+
+
 # ------------------------------------------------------------ slot path
 def slot_step(torch, cfg, fp):
     """Phase 8: full-width float32 ``prefill`` of one 1500-token prompt
@@ -1093,11 +1578,13 @@ def kernel_device_ms(torch, fn, name, iters=20):
     launch of the kernel ``name`` (any device function whose name holds
     ``name`` and ends in ``_kernel``, so a second kernel of the same call
     counts too) in a CUDA-only ``torch.profiler`` trace of ``iters``
-    calls, divided by the calls the trace holds (the launches of
-    ``<name>_kernel`` itself: a trace has been seen to drop events, and
-    now and then to hold none, when it is taken again).  The kernel
-    alone, where ``time_ms`` of a small kernel also counts the host's
-    launch overhead between calls."""
+    calls, divided by ``iters``.  A trace that holds another number of
+    calls (launches of ``<name>_kernel`` itself) than were timed is
+    refused and taken again, at most three times: traces have been seen
+    to drop events, and now and then to hold none, and a short one read
+    a kernel's time above its own ``time_ms``.  The kernel alone, where
+    ``time_ms`` of a small kernel also counts the host's launch overhead
+    between calls."""
     import re
     from torch.profiler import ProfilerActivity, profile
     pattern = re.compile(rf"{name}\w*_kernel")
@@ -1112,9 +1599,11 @@ def kernel_device_ms(torch, fn, name, iters=20):
                   if e.device_type == torch.autograd.DeviceType.CUDA
                   and pattern.search(e.name.lower())]
         calls = sum(f"{name}_kernel" in e.name.lower() for e in events)
-        if calls:
-            return sum(e.time_range.elapsed_us() for e in events) / calls \
+        if calls == iters:
+            return sum(e.time_range.elapsed_us() for e in events) / iters \
                 / 1e3
+        emit("trace_refused", kernel=name, calls_timed=iters,
+             calls_in_trace=calls)
     return "not measured"
 
 
@@ -1442,8 +1931,8 @@ def ptxas_summary(log):
     return dict(functions=fns, notes=notes)
 
 
-PHASES = ("kernels", "step", "serve", "lora", "tiers", "slot_step",
-          "slot_serve", "timing", "profile")
+PHASES = ("kernels", "sampling", "step", "serve", "lora", "tiers", "spec",
+          "slot_step", "slot_serve", "timing", "profile")
 
 
 def main() -> int:
@@ -1497,6 +1986,11 @@ def main() -> int:
         if not all(r["ok"] for r in results):
             raise AssertionError("a kernel disagrees with its plain version")
 
+    if "sampling" in only:
+        t0 = time.perf_counter()
+        sampling(torch)
+        emit("sampling_done", seconds=time.perf_counter() - t0)
+
     cfg = get_config("qwen3-0.6b")
     gemma = get_config("gemma3-4b")
     launches = slot_launches = dict.fromkeys(KERNEL_INFO, 0)
@@ -1514,6 +2008,11 @@ def main() -> int:
         t0 = time.perf_counter()
         tiers(torch, cfg, pa, pp)
         emit("tiers_done", seconds=time.perf_counter() - t0)
+    if "spec" in only:
+        t0 = time.perf_counter()
+        spec_steps(torch, cfg, pa, pp)
+        spec_serve(torch, cfg, pa, pp)
+        emit("spec_done", seconds=time.perf_counter() - t0)
     if "slot_step" in only:
         slot_step(torch, gemma, fp)
     if "slot_serve" in only:
@@ -1525,6 +2024,7 @@ def main() -> int:
                                                             slot_launches)
     if "profile" in only:
         profile_step(torch, cfg)
+        profile_spec(torch, cfg)
         profile_slot(torch, gemma)
 
     if only == set(PHASES):

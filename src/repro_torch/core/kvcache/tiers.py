@@ -2,17 +2,20 @@
 
 A copy of ``repro/core/kvcache/tiers.py`` with one deliberate
 difference, the carriage of bfloat16 payloads.  numpy has no bfloat16
-and the port does not depend on ``ml_dtypes``, so the port's runner
-hands bf16 pages out as arrays of :data:`BF16`, a one-field structured
-dtype holding the raw 2-byte bit patterns under the field name
-``"bfloat16"``.  Such an array keeps 2 bytes an element (so
+of its own.  The port's runner hands bf16 pages out as
+``ml_dtypes.bfloat16`` arrays where ``ml_dtypes`` imports (it comes
+with JAX), the JAX engines' own payloads, so a JAX engine installs a
+port page and a port engine a JAX page.  The port does not depend on
+``ml_dtypes``: without it (as on a machine with no JAX) bf16 pages go
+out as arrays of :data:`BF16`, a one-field structured dtype holding the
+raw 2-byte bit patterns under the field name ``"bfloat16"``, which only
+the port installs.  Either array keeps 2 bytes an element (so
 ``payload_nbytes`` and the tiers' byte counters agree with a JAX bf16
 engine), pickles to the SSD tier as it is, and says what it holds.
-:func:`as_float32` reads it (and ``ml_dtypes.bfloat16`` arrays, by
-their dtype name) as float32 values, so :func:`compress_page` quantizes
-the values, not the bit patterns; on float32 input it is the same
-``np.asarray(x, np.float32)`` as the reference, so the int8 wire is
-bit-equal to ``repro``'s.
+:func:`as_float32` reads both as float32 values, so
+:func:`compress_page` quantizes the values, not the bit patterns; on
+float32 input it is the same ``np.asarray(x, np.float32)`` as the
+reference, so the int8 wire is bit-equal to ``repro``'s.
 
 The device ``PagePool`` (repro_torch.engine.paged_model) and the cluster
 ``DistributedKVPool`` (repro_torch.core.kvcache.pool) used to be the only two

@@ -24,11 +24,19 @@ thread), and the distributed pool (``kv_pool_client``) with P/D roles
 the int8 wire (``wire_dtype``).  Pages cross every tier as the runner's
 numpy payloads.
 
+Speculative decoding (``spec_tokens``): the copied scheduler drafts up
+to ``spec_tokens`` tokens per decode row (prompt lookup, see
+``speculative.py``); the runner verifies every row's drafts in one pass
+(``spec_decode_step``, or ``spec_mixed_step`` when prefill chunks ride
+along), the verify lanes through the ``paged_prefill`` kernel, and
+accepts the longest prefix that matches the model's own samples.
+Sampling keys every token by (request seed, absolute position), so the
+output is the one step-by-step decoding gives, at any temperature.
+
 The engine runs on the card unless the caller names another device
 (``device="cpu"`` for tests); on a CUDA device only ``impl="kernel"``
 is accepted, so the plain attention never sits on the card's serving
-path.  Not ported yet, and refused when configured: speculative
-decoding, the async loop and sampling at temperature > 0.
+path.  Not ported yet, and refused when configured: the async loop.
 """
 from __future__ import annotations
 
@@ -57,9 +65,9 @@ from repro_torch.models.config import DENSE, ModelConfig
 class EngineConfig:
     """The JAX engine's configuration, field for field (``impl`` takes
     ``"kernel"`` or ``"ref"``).  See ``repro/engine/engine.py`` for what
-    each field does; the fields of features that are not ported yet
-    (speculation, the async loop) are kept so that configurations carry
-    over, and are refused when set."""
+    each field does; the field of the feature that is not ported yet
+    (the async loop) is kept so that configurations carry over, and is
+    refused when set."""
     page_size: int = 16
     num_pages: int = 512
     max_batch: int = 8              # decode slots
@@ -129,7 +137,6 @@ class EngineConfig:
 
 def _refuse_unported(ecfg: EngineConfig) -> None:
     unported = {
-        "speculative decoding (spec_tokens)": ecfg.spec_tokens > 0,
         "async loop (async_loop)": ecfg.async_loop,
     }
     named = [name for name, on in unported.items() if on]
@@ -273,10 +280,6 @@ class InferenceEngine:
 
     # ------------------------------------------------------------- submit
     def submit(self, req: Request) -> None:
-        if req.sampling.temperature > 0:
-            raise NotImplementedError(
-                f"request {req.request_id}: sampling at temperature > 0 "
-                "is not ported yet")
         if (req.lora_adapter and self.ecfg.lora_autoload
                 and req.lora_adapter not in self.runner.adapter_ids):
             try:
@@ -375,7 +378,8 @@ class InferenceEngine:
     # ------------------------------------------------------------- step
     def step(self) -> int:
         """One scheduler iteration.  Returns #tokens produced (one per
-        decode row, one per *completed* prefill)."""
+        decode row, several per row when a speculative step verified
+        drafts, one per *completed* prefill)."""
         self._flush_deferred_unloads()
         self._land_promotions()
         return self._exec(self.sched.schedule(self.clock()))
@@ -385,6 +389,8 @@ class InferenceEngine:
         if out.mode == "idle":
             return 0
         if out.mode == "decode":
+            if out.spec:
+                return self._step_spec(out)
             self._postprocess_decode(out.decode,
                                      self.runner.run_decode(out.decode))
             return len(out.decode)
@@ -392,6 +398,8 @@ class InferenceEngine:
             work = out.prefills[0]
             logits = self.runner.run_prefill(work)
             return 1 if self._advance_prefill(work, logits) else 0
+        if out.spec:
+            return self._step_spec(out)
         # mixed: one fused decode+prefill pass under the token budget
         dec_logits, pre_logits = self.runner.run_mixed(out)
         produced = 0
@@ -405,6 +413,25 @@ class InferenceEngine:
             self._postprocess_decode(out.decode,
                                      dec_logits[:len(out.decode)])
             produced += len(out.decode)
+        return produced
+
+    def _step_spec(self, out: ScheduleOutput) -> int:
+        """One speculative verification step: every decode row carries its
+        drafts as a short multi-query chunk, prefill chunks (when live)
+        ride the same fused pass; acceptance appends the model's own
+        samples, so the output stream is the one plain decoding gives."""
+        spec_logits, pre_logits = self.runner.run_spec(out)
+        produced = 0
+        if pre_logits is not None:
+            for i, work in enumerate(out.prefills):
+                if work.chunk_len == 0:
+                    continue
+                if self._advance_prefill(work, pre_logits[i][None]):
+                    produced += 1
+        emitted = self.runner.verify_drafts(spec_logits, out.decode,
+                                            out.spec)
+        produced += self.sched.on_spec_batch(out.decode, out.spec,
+                                             emitted, self.clock())
         return produced
 
     def _advance_prefill(self, work, logits) -> bool:
@@ -428,13 +455,20 @@ class InferenceEngine:
                     now)
             self.sched.deliver_handoff(req)
             return False
-        tok = self.runner.sample(logits, [req])[0]
+        tok = self.runner.sample(
+            logits, [req],
+            positions=[req.prompt_len + len(req.output_tokens)])[0]
         self.sched.finish_prefill(req, int(tok), now)
         self.sched.note_tokens(now, req.prompt_len + 1)
         return True
 
     def _postprocess_decode(self, reqs, logits) -> None:
-        new = self.runner.sample(logits, reqs)
+        # per-position keys: the sample for a given (seed, absolute
+        # position) is the same whether this row is decoded alone, in
+        # any batch order, or as part of a speculative verification pass
+        new = self.runner.sample(
+            logits, reqs,
+            positions=[r.prompt_len + len(r.output_tokens) for r in reqs])
         self.sched.on_decode_batch(reqs, new, self.clock())
 
     def run_until_idle(self, max_steps: int = 100_000) -> None:

@@ -1,7 +1,7 @@
 """Paged-KV forward passes for serving, the PyTorch counterpart of
 ``repro/engine/paged_model.py`` (DENSE configs).
 
-Three entry points over the stacked layer parameters of a single-run
+Five entry points over the stacked layer parameters of a single-run
 config:
 
 - ``prefill_step``: one (possibly chunked) prefill for one request; the
@@ -11,14 +11,21 @@ config:
   and K prefill chunks flattened into one token batch; only attention
   forks (decode rows to ``paged_attention``, chunk rows to
   ``paged_prefill``).
+- ``spec_decode_step``: speculative verification: every decode row is a
+  short chunk (its last token and its drafts) through ``paged_verify``,
+  the ``paged_prefill`` kernel at a lane width padded to 8, with logits
+  for every row.
+- ``spec_mixed_step``: the same lanes fused with K prefill chunks.
 
 Where the JAX package runs a ``lax.scan`` over the stacked layers and
 returns a new pool, these functions loop over the layers in Python and
 write each layer's new K/V into the pool **in place**; the returned
 ``PagePool`` is the same object that was passed in.  JAX drops masked
-K/V writes (inactive decode rows, chunk padding) with ``mode="drop"``;
-here only the valid rows are selected and written, so no write reaches
-any page for them, the scratch page included.
+K/V writes (inactive decode rows, chunk padding, idle spec lanes) with
+``mode="drop"``; here only the valid rows are selected and written, so
+no write reaches any page for them, the scratch page included, and no
+two writes of a step land on one slot (``index_put`` with repeated
+indices would keep an unspecified one).
 
 High-density LoRA is applied in-batch as in the JAX package: every
 request carries an adapter id into a gathered (adapter, d, r) x
@@ -131,30 +138,28 @@ def _qkv_lora(p_attn: dict, cfg: ModelConfig, x: torch.Tensor,
     return q, k, v
 
 
-def _qkv_lora_mixed(p_attn: dict, cfg: ModelConfig, x: torch.Tensor,
-                    positions: torch.Tensor, lora: Optional[dict],
-                    dec_adapter_ids: Optional[torch.Tensor],
-                    pre_adapter_ids: Optional[torch.Tensor], n_dec: int,
-                    n_pre: int, s: int):
-    """Like ``_qkv_lora`` for the flattened (1, B + K*S, d) mixed batch.
-
-    The adapter pair is gathered once per *request* (B for the decode
-    rows, K for the chunks), not per token: all S rows of a chunk share
-    one adapter."""
+def _qkv_lora_groups(p_attn: dict, cfg: ModelConfig, x: torch.Tensor,
+                     positions: torch.Tensor, lora: Optional[dict],
+                     groups: List[Tuple[torch.Tensor, int, int]]):
+    """Like ``_qkv_lora`` for a flattened (1, T, d) token batch made of
+    chunk-shaped *groups*: ``groups`` lists ``(adapter_ids, n_chunks,
+    chunk_width)`` covering the token dim in order (the mixed step's B
+    decode rows are B chunks of width 1).  The adapter pair is gathered
+    once per chunk, not per token: all rows of a chunk share one
+    request's adapter."""
     q, k, v = layers.attn_qkv(p_attn, cfg, x, positions)
     if lora is None:
         return q, k, v
     d_model = x.shape[-1]
 
     def delta(which: str, heads: int) -> torch.Tensor:
-        d_dec = _lora_delta(lora, which, x[0, :n_dec, None],
-                            dec_adapter_ids)                   # (B, 1, out)
-        d_pre = _lora_delta(lora, which,
-                            x[0, n_dec:].reshape(n_pre, s, d_model),
-                            pre_adapter_ids)                   # (K, S, out)
-        return torch.cat([d_dec.reshape(n_dec, heads, cfg.head_dim),
-                          d_pre.reshape(n_pre * s, heads, cfg.head_dim)]
-                         )[None]
+        parts, off = [], 0
+        for aids, n, s in groups:
+            seg = x[0, off:off + n * s].reshape(n, s, d_model)
+            parts.append(_lora_delta(lora, which, seg, aids).reshape(
+                n * s, heads, cfg.head_dim))
+            off += n * s
+        return torch.cat(parts)[None]
     q, v = _add_deltas(cfg, q, v, delta("q", cfg.n_heads),
                        delta("v", cfg.n_kv_heads), positions)
     return q, k, v
@@ -179,6 +184,23 @@ def _write_kv(pool: PagePool, layer: int, pidx: torch.Tensor,
     """pool[layer, pidx[i], slot[i]] = k/v[rows[i]] for the valid rows."""
     pool.k[layer][pidx, slot] = k[rows].to(pool.k.dtype)
     pool.v[layer][pidx, slot] = v[rows].to(pool.v.dtype)
+
+
+def _chunk_rows(tokens: torch.Tensor, ctx: torch.Tensor, lens: torch.Tensor,
+                block_tables: torch.Tensor, page_size: int, offset: int):
+    """Positions (N, W) of a batch of chunks (N, W) starting at ``ctx``,
+    and the flat rows (shifted by ``offset``), pages and slots of the
+    valid ones (row j of chunk i is valid when j < lens[i]).  Block
+    tables are read for the valid rows only: a padding row's position
+    may lie past the table's width."""
+    n, w = tokens.shape
+    dev = tokens.device
+    positions = ctx.long()[:, None] + torch.arange(w, device=dev)[None]
+    valid = torch.arange(w, device=dev)[None] < lens[:, None]
+    rows = torch.nonzero(valid.reshape(-1)).squeeze(1)
+    pos = positions.reshape(-1)[rows]
+    pidx = block_tables[rows // w, pos // page_size].long()
+    return positions, offset + rows, pidx, pos % page_size
 
 
 # ---------------------------------------------------------------- prefill
@@ -284,34 +306,29 @@ def mixed_step(params, pool: PagePool,
     b = dec_tokens.shape[0]
     kk, s = pre_tokens.shape
     h_, hd = cfg.n_heads, cfg.head_dim
-
-    pre_positions = (pre_ctx.long()[:, None]
-                     + torch.arange(s, device=dev)[None])       # (K, S)
+    # the rows whose K/V are written: active decode rows (chunks of one),
+    # then the valid rows of each chunk
+    dec_pos, dec_rows, dec_pidx, dec_slot = _chunk_rows(
+        dec_tokens[:, None], dec_positions, dec_active.int(),
+        dec_block_tables, page_size, 0)
+    pre_pos, pre_rows, pre_pidx, pre_slot = _chunk_rows(
+        pre_tokens, pre_ctx, pre_chunk, pre_block_tables, page_size, b)
+    rows = torch.cat([dec_rows, pre_rows])
+    pidx = torch.cat([dec_pidx, pre_pidx])
+    slot = torch.cat([dec_slot, pre_slot])
     tokens_flat = torch.cat([dec_tokens, pre_tokens.reshape(-1)])
-    positions_flat = torch.cat([dec_positions.long(),
-                                pre_positions.reshape(-1)])     # (T,)
+    positions_flat = torch.cat([dec_pos.reshape(-1),
+                                pre_pos.reshape(-1)])           # (T,)
     x = M.embed(params, cfg, tokens_flat[None])                 # (1, T, d)
     dec_lengths = torch.where(dec_active, dec_positions + 1, 0).to(
         torch.int32)
-    # the rows whose K/V are written: active decode rows, then the valid
-    # rows of each chunk.  Block tables are read for those rows only:
-    # a padding row's position may lie past the table's width.
-    in_range = torch.arange(s, device=dev)[None] < pre_chunk[:, None]
-    dec_rows = torch.nonzero(dec_active).squeeze(1)
-    pre_rows = torch.nonzero(in_range.reshape(-1)).squeeze(1)
-    dec_pos = positions_flat[dec_rows]
-    pre_pos = pre_positions.reshape(-1)[pre_rows]
-    rows = torch.cat([dec_rows, b + pre_rows])
-    pidx = torch.cat([dec_block_tables[dec_rows, dec_pos // page_size],
-                      pre_block_tables[pre_rows // s, pre_pos // page_size]
-                      ]).long()
-    slot = torch.cat([dec_pos, pre_pos]) % page_size
 
     for i, p_l in enumerate(_layer_params(params, cfg)):
         h = layers.rms_norm(x, p_l["ln1"], cfg.norm_eps)
-        q, k, v = _qkv_lora_mixed(p_l["attn"], cfg, h, positions_flat[None],
-                                  lora, dec_adapter_ids, pre_adapter_ids,
-                                  b, kk, s)
+        q, k, v = _qkv_lora_groups(p_l["attn"], cfg, h,
+                                   positions_flat[None], lora,
+                                   [(dec_adapter_ids, b, 1),
+                                    (pre_adapter_ids, kk, s)])
         _write_kv(pool, i, pidx, slot, rows, k[0], v[0])
         o_dec = kops.paged_attention(q[0, :b], pool.k[i], pool.v[i],
                                      dec_block_tables, dec_lengths,
@@ -329,3 +346,107 @@ def mixed_step(params, pool: PagePool,
                      + torch.clamp(pre_chunk.long() - 1, min=0)])
     logits = M.unembed(params, cfg, x[0, sel][None])[0]         # (B+K, V)
     return logits[:b], logits[b:], pool
+
+
+# ------------------------------------------------- speculative verification
+def spec_decode_step(params, pool: PagePool, spec_tokens: torch.Tensor,
+                     spec_ctx: torch.Tensor, spec_len: torch.Tensor,
+                     spec_block_tables: torch.Tensor,
+                     lora: Optional[dict] = None,
+                     adapter_ids: Optional[torch.Tensor] = None, *,
+                     cfg: ModelConfig, page_size: int, impl: str = "kernel"
+                     ) -> Tuple[torch.Tensor, PagePool]:
+    """One speculative decode step: every decode row is a short
+    multi-query chunk ``[last_token, draft_1..draft_d]`` verified in a
+    single pass.
+
+    spec_tokens:       (B, SD) int32: row i feeds its last sampled token
+                       at position ``spec_ctx[i]``, then the drafts
+                       (padded; ``spec_len`` valid, 0 = idle lane)
+    spec_ctx:          (B,) tokens already in the pages
+    spec_block_tables: (B, NB) int32
+    lora, adapter_ids: the adapter bank and (B,) slots (None: no LoRA)
+    Returns (logits for EVERY chunk row (B, SD, V), pool updated in
+    place).  Row j's logits are the model's distribution after
+    drafts[:j], what acceptance needs.  The K/V of every fed token
+    (drafts included) is written into the pages; a rejected draft
+    leaves a stale slot past the accepted length that attention never
+    reads and the next step's real token overwrites.
+    """
+    b, sd = spec_tokens.shape
+    positions, rows, pidx, slot = _chunk_rows(
+        spec_tokens, spec_ctx, spec_len, spec_block_tables, page_size, 0)
+    positions_flat = positions.reshape(-1)[None]
+    x = M.embed(params, cfg, spec_tokens.reshape(1, -1))   # (1, B*SD, d)
+    h_, hd = cfg.n_heads, cfg.head_dim
+
+    for i, p_l in enumerate(_layer_params(params, cfg)):
+        h = layers.rms_norm(x, p_l["ln1"], cfg.norm_eps)
+        q, k, v = _qkv_lora_groups(p_l["attn"], cfg, h, positions_flat,
+                                   lora, [(adapter_ids, b, sd)])
+        _write_kv(pool, i, pidx, slot, rows, k[0], v[0])
+        o = kops.paged_verify(q[0].reshape(b, sd, h_, hd), pool.k[i],
+                              pool.v[i], spec_block_tables, spec_ctx,
+                              spec_len, impl=impl)
+        x = _ffn(p_l, cfg, x + layers.attn_out(
+            p_l["attn"], o.reshape(1, b * sd, h_, hd)))
+    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = M.unembed(params, cfg, x)[0]                   # (B*SD, V)
+    return logits.reshape(b, sd, -1), pool
+
+
+def spec_mixed_step(params, pool: PagePool, spec_tokens: torch.Tensor,
+                    spec_ctx: torch.Tensor, spec_len: torch.Tensor,
+                    spec_block_tables: torch.Tensor,
+                    pre_tokens: torch.Tensor, pre_block_tables: torch.Tensor,
+                    pre_ctx: torch.Tensor, pre_chunk: torch.Tensor,
+                    lora: Optional[dict] = None,
+                    spec_adapter_ids: Optional[torch.Tensor] = None,
+                    pre_adapter_ids: Optional[torch.Tensor] = None, *,
+                    cfg: ModelConfig, page_size: int, impl: str = "kernel"
+                    ) -> Tuple[torch.Tensor, torch.Tensor, PagePool]:
+    """``spec_decode_step`` fused with prefill chunks: B speculative
+    lanes and K prefill chunks flattened into ONE pass (the spec-enabled
+    sibling of ``mixed_step``).  The lanes go through ``paged_verify``,
+    the chunks through ``paged_prefill``; logits come out for every spec
+    row and for the last valid row of each chunk.  Returns (spec logits
+    (B, SD, V), prefill last-token logits (K, V), pool updated in
+    place)."""
+    dev = spec_tokens.device
+    b, sd = spec_tokens.shape
+    kk, s = pre_tokens.shape
+    h_, hd = cfg.n_heads, cfg.head_dim
+    spec_pos, spec_rows, spec_pidx, spec_slot = _chunk_rows(
+        spec_tokens, spec_ctx, spec_len, spec_block_tables, page_size, 0)
+    pre_pos, pre_rows, pre_pidx, pre_slot = _chunk_rows(
+        pre_tokens, pre_ctx, pre_chunk, pre_block_tables, page_size, b * sd)
+    rows = torch.cat([spec_rows, pre_rows])
+    pidx = torch.cat([spec_pidx, pre_pidx])
+    slot = torch.cat([spec_slot, pre_slot])
+    tokens_flat = torch.cat([spec_tokens.reshape(-1), pre_tokens.reshape(-1)])
+    positions_flat = torch.cat([spec_pos.reshape(-1),
+                                pre_pos.reshape(-1)])[None]
+    x = M.embed(params, cfg, tokens_flat[None])             # (1, T, d)
+
+    for i, p_l in enumerate(_layer_params(params, cfg)):
+        h = layers.rms_norm(x, p_l["ln1"], cfg.norm_eps)
+        q, k, v = _qkv_lora_groups(p_l["attn"], cfg, h, positions_flat,
+                                   lora, [(spec_adapter_ids, b, sd),
+                                          (pre_adapter_ids, kk, s)])
+        _write_kv(pool, i, pidx, slot, rows, k[0], v[0])
+        o_spec = kops.paged_verify(q[0, :b * sd].reshape(b, sd, h_, hd),
+                                   pool.k[i], pool.v[i], spec_block_tables,
+                                   spec_ctx, spec_len, impl=impl)
+        o_pre = kops.paged_prefill(q[0, b * sd:].reshape(kk, s, h_, hd),
+                                   pool.k[i], pool.v[i], pre_block_tables,
+                                   pre_ctx, pre_chunk, impl=impl)
+        o = torch.cat([o_spec.reshape(b * sd, h_, hd),
+                       o_pre.reshape(kk * s, h_, hd)])[None]
+        x = _ffn(p_l, cfg, x + layers.attn_out(p_l["attn"], o))
+    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    # every spec row + each prefill chunk's last valid row
+    sel = torch.cat([torch.arange(b * sd, device=dev),
+                     b * sd + torch.arange(kk, device=dev) * s
+                     + torch.clamp(pre_chunk.long() - 1, min=0)])
+    logits = M.unembed(params, cfg, x[0, sel][None])[0]     # (B*SD+K, V)
+    return logits[:b * sd].reshape(b, sd, -1), logits[b * sd:], pool

@@ -1,17 +1,24 @@
 """ModelRunner: executes a ``ScheduleOutput`` on the PyTorch model, the
-counterpart of ``repro/engine/runner.py`` (no speculation or async loop
-yet).
+counterpart of ``repro/engine/runner.py`` (no async loop yet).
 
 The runner owns everything device-shaped: the params, the paged KV
 ``PagePool`` (updated in place by every step), the high-density LoRA
-bank and the persistent host input buffers, allocated once and refilled
-per step.  The pool holds ``num_pages + 1`` pages: the last is the
-scratch page that padding block-table entries point at.
+bank, the sampling key stream and the persistent host input buffers,
+allocated once and refilled per step.  The pool holds ``num_pages + 1``
+pages: the last is the scratch page that padding block-table entries
+point at.
+
+Sampling keys are the JAX package's: with ``positions`` every row is
+keyed by (request seed, absolute position) through ``row_keys``, so a
+speculative verification pass samples each position as step-by-step
+decoding would; without, one split of the runner's own key stream
+(``PRNGKey(seed + 1)``) per call.
 
 It also owns the page *payload* side of the KV tiers: a page leaves the
 device as numpy ``(L, page, Hkv, D)`` K and V arrays, the JAX package's
-format (bf16 as ``tiers.BF16`` bit patterns, see there), so the host,
-SSD and distributed tiers hold the same payloads for both packages.
+format (bf16 as ``ml_dtypes.bfloat16`` where that package imports, else
+as ``tiers.BF16`` bit patterns, see there), so the host, SSD and
+distributed tiers hold the same payloads for both packages.
 """
 from __future__ import annotations
 
@@ -25,22 +32,30 @@ import torch
 from repro_torch.core.kvcache.tiers import BF16
 from repro_torch.engine import paged_model as PM
 from repro_torch.engine.request import Request
-from repro_torch.engine.sampling import sample
+from repro_torch.engine.sampling import prng_key, row_keys, sample, split
 from repro_torch.engine.scheduler import PrefillWork, ScheduleOutput
+from repro_torch.engine.speculative import accept_length
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+try:        # numpy's bfloat16, where installed (it comes with JAX)
+    from ml_dtypes import bfloat16 as _NP_BF16
+except ImportError:
+    _NP_BF16 = BF16
 
 
 def to_payload(page: torch.Tensor) -> np.ndarray:
     """A page tensor -> a numpy array that owns its memory (a copy on the
     CPU too: ``.numpy()`` of a CPU tensor would alias the pool, which the
     next step overwrites in place, under a host-tier entry).  bfloat16
-    comes out as ``BF16`` bit patterns."""
+    comes out as an ``ml_dtypes.bfloat16`` array, which a JAX engine
+    installs as it is, or as ``BF16`` bit patterns where ``ml_dtypes``
+    is not installed (no JAX engine can then share the payload)."""
     page = page.to("cpu", copy=True)
     if page.dtype == torch.bfloat16:
-        return page.view(torch.int16).numpy().view(BF16)
+        return page.view(torch.int16).numpy().view(_NP_BF16)
     return page.numpy()
 
 
@@ -71,6 +86,7 @@ class ModelRunner:
                                  dtype, device)
         self._adapter_ids: Dict[str, int] = {}
         self._free_adapter_slots = list(range(1, ecfg.max_adapters))
+        self._key = prng_key(seed + 1)      # on the CPU: split per call
         # adapter tiering (HBM bank <-> bounded host tier <-> artifact
         # store): weights are a pure function of (engine seed, adapter
         # NAME), never of the bank slot, so eviction is always safe
@@ -101,6 +117,13 @@ class ModelRunner:
         self._pre_chunk = np.zeros(kk1, np.int32)
         self._pre_aids = np.zeros(kk1, np.int32)
         self._pre_bts = np.full((kk1, nbmax), ecfg.num_pages, np.int32)
+        # speculative verification buffers: every decode row becomes a
+        # fixed-width chunk [last_token, draft_1..draft_d], padded to the
+        # full width (0 valid rows mark an idle lane)
+        sd = 1 + max(ecfg.spec_tokens, 0)
+        self._spec_toks = np.zeros((b, sd), np.int32)
+        self._spec_ctx = np.zeros(b, np.int32)
+        self._spec_len = np.zeros(b, np.int32)
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         """Copy a host buffer to the device (a copy on the CPU too: the
@@ -213,10 +236,34 @@ class ModelRunner:
         return self.lora if any(a.any() for a in aids) else None
 
     # ---------------------------------------------------------- sampling
-    def sample(self, logits: torch.Tensor, reqs: List[Request]
-               ) -> np.ndarray:
-        temps = [r.sampling.temperature for r in reqs[:logits.shape[0]]]
-        return sample(logits, temps).cpu().numpy()
+    def sample(self, logits: torch.Tensor, reqs: List[Request],
+               positions: Optional[List[int]] = None) -> np.ndarray:
+        """``positions`` (absolute index of the token being produced, per
+        row) switches to per-position keys (seed x position through
+        ``row_keys``): the sample then depends neither on batch order
+        nor on how many positions one pass verifies.  Without it, one
+        split of the runner's key stream keys the batch.  A greedy
+        batch needs no per-position keys, and gets none (their host cost
+        would be paid every step)."""
+        b = logits.shape[0]
+        temps = np.zeros(b, np.float32)
+        tops = np.ones(b, np.float32)
+        for i, r in enumerate(reqs[:b]):
+            temps[i] = r.sampling.temperature
+            tops[i] = r.sampling.top_p
+        keys = None
+        sub = self._key
+        if positions is None:
+            self._key, sub = split(self._key)
+        elif (temps > 0).any():
+            seeds = np.zeros(b, np.int64)
+            pos = np.zeros(b, np.int64)     # pad to the logits batch
+            for i, r in enumerate(reqs[:b]):
+                seeds[i] = r.sampling.seed
+                pos[i] = positions[i]
+            keys = row_keys(seeds, pos)
+        return sample(logits, sub, temps, top_k=0, top_p=tops,
+                      keys=keys).cpu().numpy()
 
     # ------------------------------------------------------- input prep
     def _pages_for(self, n_tokens: int) -> int:
@@ -305,6 +352,84 @@ class ModelRunner:
             self._bank(self._dec_aids), aids, cfg=self.cfg,
             page_size=self.ecfg.page_size, impl=self.ecfg.impl)
         return logits
+
+    # -------------------------------------------------- speculative step
+    def _spec_inputs(self, reqs: List[Request], spec: List[List[int]]):
+        ecfg = self.ecfg
+        nb = self._bt_width(max((self._pages_for(
+            r.prompt_len + len(r.output_tokens) + len(d))
+            for r, d in zip(reqs, spec)), default=1))
+        toks, ctx, slen = self._spec_toks, self._spec_ctx, self._spec_len
+        aids = self._dec_aids
+        bts = self._dec_bts[:, :nb]
+        toks[:] = 0
+        ctx[:] = 0
+        slen[:] = 0                         # 0 marks an idle lane
+        aids[:] = 0
+        bts[:] = ecfg.num_pages             # scratch page
+        for i, (r, d) in enumerate(zip(reqs, spec)):
+            toks[i, 0] = r.output_tokens[-1]
+            toks[i, 1:1 + len(d)] = d
+            ctx[i] = r.prompt_len + len(r.output_tokens) - 1
+            slen[i] = 1 + len(d)
+            n = min(len(r.page_ids), nb)
+            bts[i, :n] = r.page_ids[:n]
+            aids[i] = self._aid(r)
+        return (self._dev(toks), self._dev(ctx), self._dev(slen),
+                self._dev(np.ascontiguousarray(bts)), self._dev(aids))
+
+    def run_spec(self, out: ScheduleOutput
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """One speculative verification pass.  Decode-only schedules take
+        ``PM.spec_decode_step``; schedules carrying live prefill chunks
+        fuse them through ``PM.spec_mixed_step``.  Returns (spec logits
+        (B, SD, V), prefill logits (K, V) or None)."""
+        ecfg = self.ecfg
+        kw = dict(cfg=self.cfg, page_size=ecfg.page_size, impl=ecfg.impl)
+        if any(w.chunk_len > 0 for w in out.prefills):
+            pre_toks, pre_ctx, pre_chunk, pre_bts, pre_aids = \
+                self._prefill_inputs(out.prefills, out.pad_len)
+            toks, ctx, slen, bts, aids = self._spec_inputs(out.decode,
+                                                           out.spec)
+            spec_logits, pre_logits, self.pool = PM.spec_mixed_step(
+                self.params, self.pool, toks, ctx, slen, bts, pre_toks,
+                pre_bts, pre_ctx, pre_chunk,
+                self._bank(self._dec_aids, self._pre_aids), aids,
+                pre_aids, **kw)
+            return spec_logits, pre_logits
+        toks, ctx, slen, bts, aids = self._spec_inputs(out.decode, out.spec)
+        spec_logits, self.pool = PM.spec_decode_step(
+            self.params, self.pool, toks, ctx, slen, bts,
+            self._bank(self._dec_aids), aids, **kw)
+        return spec_logits, None
+
+    def verify_drafts(self, spec_logits: torch.Tensor, reqs: List[Request],
+                      spec: List[List[int]]) -> List[List[int]]:
+        """Sample EVERY verification row with per-position keys and accept
+        each row's longest draft prefix that matches the model's own
+        samples.  Returns per-request emitted token lists (accepted
+        prefix + the bonus/correction token): what step-by-step decoding
+        would have produced."""
+        b, sd, v = spec_logits.shape
+        temps = np.zeros(b * sd, np.float32)
+        tops = np.ones(b * sd, np.float32)
+        seeds = np.zeros(b * sd, np.int64)
+        pos = np.zeros(b * sd, np.int64)
+        for i, r in enumerate(reqs):
+            temps[i * sd:(i + 1) * sd] = r.sampling.temperature
+            tops[i * sd:(i + 1) * sd] = r.sampling.top_p
+            seeds[i * sd:(i + 1) * sd] = r.sampling.seed
+            base = r.prompt_len + len(r.output_tokens)
+            pos[i * sd:(i + 1) * sd] = base + np.arange(sd)
+        keys = row_keys(seeds, pos) if (temps > 0).any() else None
+        sampled = sample(spec_logits.reshape(b * sd, v), self._key, temps,
+                         top_k=0, top_p=tops, keys=keys
+                         ).cpu().numpy().reshape(b, sd)
+        emitted = []
+        for i, d in enumerate(spec):
+            m = accept_length(d, sampled[i, :len(d) + 1])
+            emitted.append([int(t) for t in sampled[i, :m + 1]])
+        return emitted
 
     def run_prefill(self, work: PrefillWork) -> torch.Tensor:
         """One (possibly chunked) prefill for ONE request (two-phase)."""

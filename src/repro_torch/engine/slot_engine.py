@@ -13,10 +13,10 @@ copied :class:`repro_torch.engine.scheduler.SchedulerCore`, so the
 handle contract (``submit``/``step``/``metrics``/``match_prefix_len``)
 is the paged engine's.
 
-Sampling is greedy (per codebook for codebook models); a request with
-``temperature > 0`` on a model without codebooks is refused at submit,
-as ``engine/sampling.py`` refuses it.  The SSM and hybrid layer types
-are not ported yet, so xLSTM, Hymba and MLA configs are refused.
+Sampling is the JAX slot engine's: one split of the engine's key stream
+(``PRNGKey(seed + 1)``) per sampled step, no nucleus filter, and greedy
+per codebook for codebook models.  The SSM and hybrid layer types are
+not ported yet, so xLSTM, Hymba and MLA configs are refused.
 """
 from __future__ import annotations
 
@@ -30,7 +30,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.engine.request import Request, RequestState
 from repro_torch.engine.runner import DTYPES
-from repro_torch.engine.sampling import sample
+from repro_torch.engine.sampling import prng_key, sample, split
 from repro_torch.engine.scheduler import EngineMetrics, SchedulerCore
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
@@ -64,13 +64,10 @@ class SlotEngine:
                                    self.ecfg.max_len, self.dtype, self.device)
         self.slots: List[Optional[Request]] = [None] * self.ecfg.max_slots
         self.core = SchedulerCore()
+        self._key = prng_key(seed + 1)
 
     # ------------------------------------------------------------ contract
     def submit(self, req: Request) -> None:
-        if req.sampling.temperature > 0 and not self.cfg.num_codebooks:
-            raise NotImplementedError(
-                f"request {req.request_id}: sampling at temperature > 0 "
-                "is not ported yet")
         self.core.enqueue(req, self.clock())
 
     @property
@@ -135,7 +132,8 @@ class SlotEngine:
             lg = logits.reshape(len(reqs), self.cfg.num_codebooks, -1)
             return torch.argmax(lg.float(), -1).to(torch.int32).cpu().numpy()
         temps = [r.sampling.temperature for r in reqs[:logits.shape[0]]]
-        return sample(logits, temps).cpu().numpy()
+        self._key, sub = split(self._key)
+        return sample(logits, sub, temps).cpu().numpy()
 
     def step(self) -> int:
         # admit (shared admission scan: FIFO, failing oversized requests)

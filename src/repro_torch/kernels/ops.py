@@ -4,8 +4,9 @@
 CUDA tensors, their plain versions for CPU tensors); ``impl="ref"`` goes
 straight to the plain versions on any device, so a caller can hold one
 against the other.  ``paged_prefill`` pads the chunk to a block
-multiple as the JAX wrapper does; ``flash_attention`` pads nothing (the
-kernel masks the ragged edges itself).
+multiple as the JAX wrapper does (``paged_verify``, its speculative
+lanes, to a multiple of 8); ``flash_attention`` pads nothing (the kernel
+masks the ragged edges itself).
 """
 from __future__ import annotations
 
@@ -53,6 +54,19 @@ def paged_prefill(q, k_pages, v_pages, block_tables, ctx_lens, chunk_lens,
     out = _paged_pre(q.contiguous(), k_pages, v_pages, block_tables,
                      ctx_lens, chunk_lens)
     return out[:, :s]
+
+
+def paged_verify(q, k_pages, v_pages, block_tables, ctx_lens, draft_lens,
+                 *, impl: str = "kernel") -> torch.Tensor:
+    """Speculative-verification attention: each decode row is a short
+    multi-query chunk ``[last_token, draft_1..draft_d]`` at a dynamic
+    context offset, the paged-prefill shape, so the lanes ride
+    :func:`paged_prefill` (the lane width padded to a multiple of 8, as
+    the JAX wrapper's one small q block pads it).  ``draft_lens`` counts
+    valid rows per lane (1 + drafts; 0 marks an idle lane, whose rows
+    come out as zeros)."""
+    return paged_prefill(q, k_pages, v_pages, block_tables, ctx_lens,
+                         draft_lens, impl=impl)
 
 
 def flash_attention(q, k, v, lengths, *, window: int = 0, q_offset: int = 0,

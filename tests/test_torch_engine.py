@@ -109,8 +109,7 @@ def test_allocating_entry_points_default_to_the_card(weights, entry):
     assert leaves and all(t.device.type == "cpu" for t in leaves)
 
 
-@pytest.mark.parametrize("field,value", [
-    ("spec_tokens", 2), ("async_loop", True)])
+@pytest.mark.parametrize("field,value", [("async_loop", True)])
 def test_unported_features_are_refused(field, value):
     cfg = get_reduced_config("qwen3-0.6b")
     with pytest.raises(NotImplementedError):
@@ -120,12 +119,12 @@ def test_unported_features_are_refused(field, value):
 
 @pytest.mark.parametrize("field,value,attr", [
     ("host_cache_gb", 1.0, "host_pool"), ("ssd_cache_gb", 1.0, "ssd_pool"),
-    ("role", "prefill", None)])
+    ("role", "prefill", None), ("spec_tokens", 2, None)])
 def test_ported_tier_and_role_features_construct(tmp_path, field, value,
                                                  attr):
-    """The KV tiers and P/D roles, refused before they were ported, now
-    build an engine with the tier attached (the SSD tier sits under a
-    host tier, as in the JAX engine)."""
+    """The KV tiers, P/D roles and speculative decoding, refused before
+    they were ported, now build an engine with the tier attached (the
+    SSD tier sits under a host tier, as in the JAX engine)."""
     cfg = get_reduced_config("qwen3-0.6b")
     kw = {field: value}
     if field == "ssd_cache_gb":
@@ -134,7 +133,7 @@ def test_ported_tier_and_role_features_construct(tmp_path, field, value,
     if attr is not None:
         assert getattr(eng, attr) is not None
     else:
-        assert eng.sched.scfg.role == value
+        assert getattr(eng.sched.scfg, field) == value
 
 
 def test_kernel_impl_required_on_cuda_and_requests_checked(weights):
@@ -147,6 +146,9 @@ def test_kernel_impl_required_on_cuda_and_requests_checked(weights):
     # a request naming an adapter is served: the adapter is autoloaded
     eng.submit(Request(prompt_tokens=prompts[0], lora_adapter="a"))
     assert eng.adapters == ["a"]
-    with pytest.raises(NotImplementedError, match="temperature"):
-        eng.submit(Request(prompt_tokens=prompts[0],
-                           sampling=SamplingParams(temperature=0.7)))
+    # sampling at temperature > 0 is served, no longer refused
+    r = Request(prompt_tokens=prompts[0],
+                sampling=SamplingParams(temperature=0.7, max_new_tokens=2))
+    eng.submit(r)
+    eng.run_until_idle()
+    assert len(r.output_tokens) == 2

@@ -7,9 +7,11 @@ engines with the same weights and give the same tokens and counters
 to ``repro``'s on float32 pages; P/D handoffs run port to port over
 both wires, and across the backends (a JAX prefill engine publishes, a
 port decode engine finishes); an SSD round trip with promotion runs in
-a temporary directory.  bf16 pages leave the port as ``tiers.BF16`` bit
-patterns: they survive a swap, keep 2 bytes an element and quantize by
-value.
+a temporary directory.  bf16 pages leave the port as ``ml_dtypes``
+bfloat16 arrays, which a JAX decode engine installs (port prefill -> JAX
+decode, both wires, float32 and bf16); the ``tiers.BF16`` bit patterns
+the port falls back to without ``ml_dtypes`` install too; both survive a
+swap, keep 2 bytes an element and quantize by value.
 """
 import time
 from types import SimpleNamespace
@@ -236,6 +238,101 @@ def test_cross_backend_handoff_jax_prefill_port_decode(setup):
                                        J.SamplingParams, prompt, 6)
 
 
+class _JaxWire:
+    """The JAX package's pool as a port engine's client: int8 pages cross
+    as the JAX package's ``CompressedPage`` (the same four arrays; the
+    two packages' classes are distinct, as their request enums are)."""
+
+    def __init__(self, pool):
+        self.pool = pool
+
+    def publish(self, block_hash, payload, *args, **kw):
+        if isinstance(payload, tiers.CompressedPage):
+            payload = jtiers.CompressedPage(payload.q_k, payload.q_v,
+                                            payload.k_scale,
+                                            payload.v_scale)
+        return self.pool.publish(block_hash, payload, *args, **kw)
+
+    def __getattr__(self, name):
+        return getattr(self.pool, name)
+
+
+def _pd_to_jax(setup, make_prefill, req_cls, sp_cls, jparams, prompt,
+               wire, dtype):
+    """A prefill engine (``make_prefill(pool, clock)``) publishes to the
+    JAX package's DistributedKVPool and a JAX ``role="decode"`` engine
+    on ``jparams`` finishes the request (rebuilt as a JAX Request).
+    Returns the decode engine and the finished request."""
+    t0 = time.monotonic()
+    clock = lambda: time.monotonic() - t0    # noqa: E731
+    pool = jpool.DistributedKVPool(capacity_bytes=1 << 30,
+                                   metadata_lag=0.0, clock=clock)
+    pre = make_prefill(pool, clock)
+    dec = J.InferenceEngine(
+        setup.jcfg, J.EngineConfig(**dict(ECFG, role="decode",
+                                          wire_dtype=wire, dtype=dtype)),
+        params=jparams, clock=clock, kv_pool_client=pool, engine_id="d0")
+    handed = []
+
+    def handoff(req):
+        r = J.Request(prompt_tokens=list(req.prompt_tokens),
+                      sampling=J.SamplingParams(
+                          max_new_tokens=req.sampling.max_new_tokens),
+                      lora_adapter=req.lora_adapter,
+                      request_id=req.request_id)
+        handed.append(r)
+        dec.submit(r)
+
+    pre.handoff = handoff
+    _pd(pre, dec, prompt, req_cls, sp_cls)
+    (req,) = handed
+    assert req.state is J.RequestState.FINISHED
+    assert pre.alloc.num_free == pre.alloc.num_pages
+    assert dec.alloc.num_free == dec.alloc.num_pages
+    return dec, req
+
+
+@pytest.mark.parametrize("wire", ["fp", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cross_backend_handoff_port_prefill_jax_decode(setup, wire, dtype):
+    """A port ``role="prefill"`` engine publishes to the JAX package's
+    DistributedKVPool; a JAX ``role="decode"`` engine on the same weights
+    installs its pages (bf16 pages as ``ml_dtypes.bfloat16`` arrays, the
+    JAX engines' own payloads) and finishes the request.  On the raw
+    wire it gives the tokens of a JAX ``role="mixed"`` engine; on the
+    int8 wire those of a JAX prefill -> JAX decode handoff, whose
+    quantized pages are the same bits."""
+    jparams = jax.tree.map(lambda x: x.astype(getattr(jax.numpy, dtype)),
+                           setup.jparams)
+    params = jax.tree.map(lambda t: t.to(getattr(torch, dtype)),
+                          setup.params)
+    rng = np.random.default_rng(55)
+    prompt = rng.integers(0, setup.cfg.vocab_size, 30).tolist()
+    ecfg = dict(role="prefill", wire_dtype=wire, dtype=dtype)
+
+    def port_prefill(pool, clock):
+        return _port(setup, params=params, clock=clock, engine_id="p0",
+                     kv_pool_client=_JaxWire(pool), **ecfg)
+
+    def jax_prefill(pool, clock):
+        return J.InferenceEngine(
+            setup.jcfg, J.EngineConfig(**dict(ECFG, **ecfg)),
+            params=jparams, clock=clock, kv_pool_client=pool,
+            engine_id="p0")
+
+    dec, req = _pd_to_jax(setup, port_prefill, Request, SamplingParams,
+                          jparams, prompt, wire, dtype)
+    assert dec.metrics().remote_hit_tokens >= 24
+    if wire == "fp":
+        want = _serve(J.InferenceEngine(
+            setup.jcfg, J.EngineConfig(**dict(ECFG, dtype=dtype)),
+            params=jparams), J.Request, J.SamplingParams, prompt, 6)
+    else:
+        want = _pd_to_jax(setup, jax_prefill, J.Request, J.SamplingParams,
+                          jparams, prompt, wire, dtype)[1].output_tokens
+    assert req.output_tokens == want
+
+
 # ------------------------------------------------------------------ SSD
 def test_ssd_round_trip_with_promotion(setup, tmp_path):
     """tests/test_sessions.py:508 on the port, its SSD tier in a
@@ -271,10 +368,11 @@ def test_ssd_round_trip_with_promotion(setup, tmp_path):
 
 # ------------------------------------------------------------- bf16 pages
 def test_bf16_payloads(setup):
-    """bf16 pages leave the device as ``BF16`` bit patterns of 2 bytes an
-    element (the JAX bf16 engine's page_bytes), come back bit for bit
-    (from ``ml_dtypes.bfloat16`` arrays too), and quantize by value
-    within the wire's bound."""
+    """bf16 pages leave the device as ``ml_dtypes.bfloat16`` arrays of 2
+    bytes an element (the JAX bf16 engine's page_bytes), come back bit
+    for bit (from ``BF16`` bit patterns, the port's carriage without
+    ``ml_dtypes``, too), and quantize by value within the wire's
+    bound."""
     params = jax.tree.map(lambda t: t.to(torch.bfloat16), setup.params)
     eng = _port(setup, params=params, dtype="bfloat16")
     assert eng.runner.page_bytes == _jax(setup, dtype="bfloat16") \
@@ -283,17 +381,19 @@ def test_bf16_payloads(setup):
     eng.runner.pool.k[:, 3].normal_(generator=gen)
     eng.runner.pool.v[:, 3].normal_(generator=gen)
     k, v = eng.runner.page_payload(3)
-    assert k.dtype == tiers.BF16
+    assert k.dtype == jax.numpy.bfloat16
     assert k.nbytes + v.nbytes == eng.runner.page_bytes
     assert tiers.payload_nbytes((k, v)) == eng.runner.page_bytes
     eng.runner.pool.k[:, 3] = 0                 # the payload is a copy
     assert tiers.as_float32(k).any()
-    # back into another page, as BF16 and as ml_dtypes.bfloat16 arrays
-    eng.runner.write_remote_page(5, k, v)
+    # back into other pages, as they came, as BF16 bit patterns and as
+    # float32 values
     kf = tiers.as_float32(k)
-    eng.runner.write_remote_page(6, kf.astype(jax.numpy.bfloat16),
-                                 tiers.as_float32(v))
-    for pid in (5, 6):
+    eng.runner.write_remote_page(4, k, v)
+    eng.runner.write_remote_page(5, k.view(np.uint16).view(tiers.BF16),
+                                 v.view(np.uint16).view(tiers.BF16))
+    eng.runner.write_remote_page(6, kf, tiers.as_float32(v))
+    for pid in (4, 5, 6):
         assert np.array_equal(eng.runner.pool.k[:, pid].float().numpy(), kf)
         assert np.array_equal(eng.runner.pool.v[:, pid].float().numpy(),
                               tiers.as_float32(v))

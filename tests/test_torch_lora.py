@@ -1,6 +1,7 @@
 """Multi-LoRA serving in the port against the JAX package.
 
-The LoRA math (``_lora_delta``, ``_qkv_lora_mixed``) and the three paged
+The LoRA math (``_lora_delta``, the mixed step's grouped delta against
+JAX's ``_qkv_lora_mixed``) and the three paged
 step functions with an adapter bank are compared with the JAX functions
 on the same weights at 1e-5 in float32.  The engine serves base and
 adapter requests token-identically to ``repro.engine.InferenceEngine``,
@@ -102,15 +103,16 @@ def test_lora_delta_and_qkv_mixed_match_jax(setup):
                                jnp.asarray(pos), jbank,
                                jnp.asarray(dec_ids), jnp.asarray(pre_ids),
                                n_dec, n_pre, width)
-    got = PM._qkv_lora_mixed(attn, s.cfg, torch.from_numpy(xf),
-                             torch.from_numpy(pos), bank,
-                             torch.from_numpy(dec_ids),
-                             torch.from_numpy(pre_ids), n_dec, n_pre, width)
+    # the port's mixed step takes the grouped delta: decode rows are
+    # chunks of width one
+    groups = [(torch.from_numpy(dec_ids), n_dec, 1),
+              (torch.from_numpy(pre_ids), n_pre, width)]
+    got = PM._qkv_lora_groups(attn, s.cfg, torch.from_numpy(xf),
+                              torch.from_numpy(pos), bank, groups)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
-    base = PM._qkv_lora_mixed(attn, s.cfg, torch.from_numpy(xf),
-                              torch.from_numpy(pos), None, None, None,
-                              n_dec, n_pre, width)
+    base = PM._qkv_lora_groups(attn, s.cfg, torch.from_numpy(xf),
+                               torch.from_numpy(pos), None, groups)
     # rows of slot 0 are exactly the base projections, the others differ
     base_rows = [1] + list(range(n_dec + width, n_dec + 2 * width))
     for g, b_ in ((got[0], base[0]), (got[2], base[2])):

@@ -194,10 +194,16 @@ def test_slot_engine_refuses_unported_layer_types(arch):
 
 
 def test_slot_engine_refuses_temperature():
-    eng = SlotEngine(get_reduced_config("gemma3-4b"), device="cpu")
-    with pytest.raises(NotImplementedError, match="temperature"):
-        eng.submit(Request(prompt_tokens=[1, 2, 3],
-                           sampling=SamplingParams(temperature=0.7)))
+    """Refused before sampling was ported; a request at temperature > 0
+    is now served (its tokens are held to the JAX slot engine's in
+    tests/test_torch_speculative.py)."""
+    eng = SlotEngine(get_reduced_config("gemma3-4b"),
+                     SlotEngineConfig(max_slots=1, max_len=16), device="cpu")
+    r = Request(prompt_tokens=[1, 2, 3],
+                sampling=SamplingParams(temperature=0.7, max_new_tokens=2))
+    eng.submit(r)
+    eng.run_until_idle()
+    assert r.state == RequestState.FINISHED and len(r.output_tokens) == 2
 
 
 @pytest.mark.parametrize("entry", ["slot_engine", "init_cache",
