@@ -59,6 +59,25 @@ Phases, each printing one JSON line:
             counts by kind of step, no page leak; (d) 16 such bf16
             requests (prompts 128-768), off and on: tok/s, TTFT, drafts
             accepted and the share of tokens equal to the run without;
+   launch   the port's serving launcher (``repro_torch.launch.serve``:
+            its flags, gateway, role pools and request loop) at
+            qwen3-0.6b's full width, the serve phase's engine sizes, 16
+            requests of 512 tokens sharing the launcher's 24-token
+            prefix, 32 new tokens: two colocated bf16 engines behind
+            prefix-cache-aware routing (all finish, no page leaks, both
+            paged kernels launched on each engine at exactly 28 a step
+            that needs them, each engine's tokens equal to a lone
+            engine's fed the same submits and steps); 1P1D over the raw
+            wire, every engine seed 0, against a lone seed-0 engine fed
+            the same arrivals (equal tokens in float32; bf16's share of
+            equal tokens printed, its batches differ); the colocated
+            serve again, then with ``--async-loop`` (the sync tokens and
+            routing; every async dispatch under
+            ``torch.cuda.set_sync_debug_mode("error")``; sync, async and
+            sync walls, ``device_wait_s``, ``host_overhead_frac``); and
+            in float32 ``--spec-tokens 4 --async-loop`` against the sync
+            loop (the same tokens, drafts taken); the launcher's own
+            report goes to ``build/chip_smoke_launch.log``;
 8. slot step  full-width gemma3-4b in float32: ``prefill`` of a
             1500-token prompt and 4 ``decode_step``s, with the
             ``flash_prefill`` kernel and with its plain version: logits
@@ -90,6 +109,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import pathlib
 import subprocess
@@ -130,6 +150,10 @@ TIER_MAX_NEW = 16
 SLOT_ECFG = dict(max_slots=4, max_len=4096, dtype="bfloat16")
 SLOT_REQUESTS, SLOT_MAX_NEW, SLOT_PROMPTS = 8, 32, (1100, 3000)
 SLOT_STEP_PROMPT, SLOT_STEP_DECODES = 1500, 4
+# the launch phase: the port's launcher at full width with the serve
+# phase's engine sizes; prompts of the launcher's 24-token shared prefix
+# and a random tail
+LAUNCH_REQUESTS, LAUNCH_PROMPT, LAUNCH_MAX_NEW = 16, 512, 32
 # speculative decoding: 4 drafts a decode row (lanes of 5 rows); the
 # float32 serve of 8 requests (prompts 96-256 tokens) and the bf16 one
 # of 16 (PROMPT_RANGE), each prompt a random 16-64-token segment repeated
@@ -646,6 +670,316 @@ def serve(torch, cfg, pa, pp):
         if not ok:
             raise AssertionError(f"serve run {i + 1} failed its checks")
     return runs[0]["launches"]
+
+
+# ------------------------------------------------------------ launcher
+def launch_serve(torch, cfg, argv, pa, pp, engine_kw, guard_dispatch=False):
+    """One serve through the port's launcher (``repro_torch.launch.serve``:
+    its arguments, gateway, role pools and request loop) at ``cfg`` on the
+    card, with ``engine_kw`` as the engines' sizes.  Each engine the
+    launcher builds is instrumented: its kinds of step, the paged
+    kernels' launches made inside its steps, and the order of its
+    submits and steps (for a lone replay).  The kernels' counts are set
+    to 0 just before the serve and read just after.  With
+    ``guard_dispatch`` every async decode dispatch runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: a dispatch that waits
+    for the card raises."""
+    import contextlib
+    import io
+
+    import numpy as np
+    from repro_torch.engine import InferenceEngine
+    from repro_torch.launch import serve as L
+    made = {}
+    guarded = [0]
+
+    def count(eid, key):
+        made[eid]["kinds"][key] = made[eid]["kinds"].get(key, 0) + 1
+
+    def factory(cfg_, ecfg, **kw):
+        eng = InferenceEngine(cfg_, ecfg, **kw)
+        eid = kw["engine_id"]
+        rec = made[eid] = dict(eng=eng, ecfg=ecfg, seed=kw.get("seed", 0),
+                               kinds={}, events=[], launches={
+                                   "paged_attention": 0, "paged_prefill": 0})
+        step, submit, exec_ = eng.step, eng.submit, eng._exec
+        dispatch = eng._dispatch_async
+        run_async = eng.runner.run_decode_async
+
+        def step_():
+            rec["events"].append(None)
+            a, b = pa.launches, pp.launches
+            try:
+                return step()
+            finally:
+                rec["launches"]["paged_attention"] += pa.launches - a
+                rec["launches"]["paged_prefill"] += pp.launches - b
+
+        def submit_(r):
+            rec["events"].append(r)
+            return submit(r)
+
+        def exec__(out):
+            key = out.mode
+            if out.spec:
+                key = ("spec_mixed" if any(w.chunk_len for w in out.prefills)
+                       else "spec_decode")
+            count(eid, key)
+            return exec_(out)
+
+        def dispatch_(reqs):
+            count(eid, "async_decode")
+            return dispatch(reqs)
+
+        def run_async_(reqs, prev):
+            if not guard_dispatch:
+                return run_async(reqs, prev)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return run_async(reqs, prev)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                guarded[0] += 1
+        eng.step, eng.submit, eng._exec = step_, submit_, exec__
+        eng._dispatch_async = dispatch_
+        eng.runner.run_decode_async = run_async_
+        return eng
+
+    args = L.parse_args(argv)
+    report = io.StringIO()
+    L.InferenceEngine = factory
+    try:
+        torch.cuda.synchronize()
+        pa.launches = pp.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(report):
+            served = L.serve(cfg, args, device="cuda", engine_kw=engine_kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        L.InferenceEngine = InferenceEngine
+    total = {"paged_attention": pa.launches, "paged_prefill": pp.launches}
+    reqs = [r for _, r in served.reqs]
+    n = cfg.n_layers
+    engines = {}
+    for eid, rec in made.items():
+        eng, k = rec["eng"], rec["kinds"]
+        m = eng.metrics()
+        want = {"paged_attention": n * (k.get("decode", 0) + k.get("mixed", 0)
+                                        + k.get("async_decode", 0)),
+                "paged_prefill": n * (k.get("prefill", 0) + k.get("mixed", 0)
+                                      + k.get("spec_decode", 0))
+                + 2 * n * k.get("spec_mixed", 0)}
+        engines[eid] = dict(
+            role=served.manager.role_of(eid), seed=rec["seed"], steps=k,
+            launches=rec["launches"], expected_launches=want,
+            routed=served.gateway.stats.per_engine.get(eid, 0),
+            finished=m.finished_requests,
+            prefix_hit_tokens=m.prefix_hit_tokens,
+            remote_hit_tokens=m.remote_hit_tokens,
+            free_pages=eng.alloc.num_free, num_pages=eng.alloc.num_pages,
+            device_wait_s=m.device_wait_s,
+            host_overhead_frac=m.host_overhead_frac,
+            spec_drafted_tokens=m.spec_drafted_tokens,
+            spec_accepted_tokens=m.spec_accepted_tokens)
+    gen = sum(len(r.output_tokens) for r in reqs)
+    out = dict(
+        tokens=[list(r.output_tokens) for r in reqs],
+        routed_to=[eid for eid, _ in served.reqs],
+        finished=sum(r.state.name == "FINISHED"
+                     and len(r.output_tokens) == args.max_new for r in reqs),
+        engines=engines, launches=total, wall_s=wall,
+        output_tokens_per_s=gen / wall,
+        mean_ttft_s=float(np.mean([r.ttft for r in reqs])),
+        guarded_dispatches=guarded[0], report=report.getvalue(),
+        pool=(None if served.pool is None else dict(
+            puts=served.pool.stats.puts,
+            hits=served.pool.stats.hits_local
+            + served.pool.stats.hits_remote)),
+        events={eid: rec["events"] for eid, rec in made.items()},
+        recs={eid: (rec["ecfg"], rec["seed"]) for eid, rec in made.items()})
+    del served, made, engines
+    gc.collect()            # an engine's hooks hold it in a cycle
+    torch.cuda.empty_cache()
+    return out
+
+
+def lone_replay(torch, cfg, ecfg, seed, events, pa, pp, max_new):
+    """A lone engine (``ecfg``, ``seed``) fed what one engine of a served
+    group was fed: the same prompts submitted at the same points between
+    its steps, then run to idle; returns each request's tokens (by the
+    identity of the group's request) and ``counted``'s result."""
+    from repro_torch.engine import InferenceEngine, Request, SamplingParams
+    eng = InferenceEngine(cfg, ecfg, seed=seed, device="cuda")
+    mine = {}
+
+    def drive():
+        for ev in events:
+            if ev is None:
+                eng.step()
+            else:
+                mine[id(ev)] = greedy(Request, SamplingParams,
+                                      ev.prompt_tokens, max_new)
+                eng.submit(mine[id(ev)])
+        eng.run_until_idle()
+    counts = counted(torch, eng, pa, pp, drive)
+    free = eng.alloc.num_free == eng.alloc.num_pages
+    del eng
+    gc.collect()            # an engine's hooks hold it in a cycle
+    torch.cuda.empty_cache()
+    return {k: list(r.output_tokens) for k, r in mine.items()}, counts, free
+
+
+def launch(torch, cfg, pa, pp):
+    """The launch phase: the port's launcher (gateway, role pools, request
+    loop) at qwen3-0.6b's full width on the card; see the module's
+    docstring."""
+    import dataclasses
+    smi = nvidia_smi()
+    base = ["--requests", str(LAUNCH_REQUESTS), "--prompt-len",
+            str(LAUNCH_PROMPT), "--max-new", str(LAUNCH_MAX_NEW)]
+    mixed = base + ["--roles", "mixed", "--engines", "2",
+                    "--policy", "prefix-cache-aware"]
+    logs = []
+
+    def check(item, run, ok, **fields):
+        emit("launch", item=item, model=cfg.name, requests=LAUNCH_REQUESTS,
+             prompt_len=LAUNCH_PROMPT, max_new=LAUNCH_MAX_NEW,
+             finished=run["finished"], launches=run["launches"],
+             engines=run["engines"], wall_s=run["wall_s"],
+             output_tokens_per_s=run["output_tokens_per_s"],
+             mean_ttft_s=run["mean_ttft_s"], **fields, card=smi,
+             ok=bool(ok))
+        logs.append(f"== {item}\n{run['report']}")
+        if not ok:
+            raise AssertionError(f"launch: {item} failed its checks")
+
+    def served_ok(run):
+        return (run["finished"] == LAUNCH_REQUESTS
+                and all(e["free_pages"] == e["num_pages"]
+                        for e in run["engines"].values())
+                and sum(e["launches"]["paged_attention"]
+                        for e in run["engines"].values())
+                == run["launches"]["paged_attention"]
+                and sum(e["launches"]["paged_prefill"]
+                        for e in run["engines"].values())
+                == run["launches"]["paged_prefill"])
+
+    def versus_lone(events, toks):
+        """(group tokens, lone tokens) of each request submitted in
+        ``events``, and whether all LAUNCH_REQUESTS are there, equal."""
+        pairs = [(list(r.output_tokens), toks[id(r)]) for r in events
+                 if r is not None]
+        return pairs, (len(pairs) == LAUNCH_REQUESTS
+                       and all(a == b for a, b in pairs))
+
+    bf16 = dict(SERVE_ECFG)
+    try:
+        # 1. two colocated engines, prefix-cache-aware routing
+        sync = launch_serve(torch, cfg, mixed, pa, pp, bf16)
+        events, lone, lone_ok = [], {}, True
+        for eid, evs in sync["events"].items():
+            ecfg, seed = sync["recs"][eid]
+            toks, (modes, launches, want), free = lone_replay(
+                torch, cfg, ecfg, seed, evs, pa, pp, LAUNCH_MAX_NEW)
+            events += evs
+            lone.update(toks)
+            lone_ok = lone_ok and free and launches == want
+        _, same = versus_lone(events, lone)
+        both = all(min(e["launches"].values()) > 0
+                   and e["launches"] == e["expected_launches"]
+                   for e in sync["engines"].values())
+        check("mixed x2, prefix-cache-aware", sync,
+              served_ok(sync) and same and lone_ok and both,
+              routing={eid: e["routed"] for eid, e in
+                       sync["engines"].items()},
+              same_tokens_as_lone_engines=same)
+
+        # 2. 1P1D over the raw wire, every engine seed 0, against a lone
+        # seed-0 engine fed the same arrivals.  The decode engine's
+        # batches are not the lone engine's, and in bf16 the rounding
+        # follows the batch (cuBLAS's tiles, paged_attention's split
+        # plan): the tokens are held equal in float32, and bf16's share
+        # of equal tokens is printed
+        for dtype in ("bfloat16", "float32"):
+            pd = launch_serve(torch, cfg, base + [
+                "--roles", "1P1D", "--wire-dtype", "fp"], pa, pp,
+                dict(SERVE_ECFG, dtype=dtype))
+            pre = next(eid for eid, e in pd["engines"].items()
+                       if e["role"] == "prefill")
+            ecfg, _ = pd["recs"][pre]
+            arrivals = []
+            for ev in pd["events"][pre]:
+                if ev is not None:
+                    arrivals += [ev, None]      # the launcher pumps once
+            toks, counts, free = lone_replay(
+                torch, cfg, dataclasses.replace(ecfg, role="mixed"), 0,
+                arrivals, pa, pp, LAUNCH_MAX_NEW)
+            pairs, same_pd = versus_lone(pd["events"][pre], toks)
+            equal = sum(x == y for a, b in pairs for x, y in zip(a, b))
+            first = [next((j for j, (x, y) in enumerate(zip(a, b))
+                           if x != y), None) for a, b in pairs]
+            check(f"1P1D, fp wire, {dtype}", pd,
+                  served_ok(pd) and free and counts[1] == counts[2]
+                  and pd["pool"]["puts"] > 0 and pd["pool"]["hits"] > 0
+                  and (same_pd or dtype == "bfloat16"),
+                  dtype=dtype, pool=pd["pool"],
+                  same_tokens_as_lone_seed0_engine=same_pd,
+                  share_of_tokens_equal=equal / (LAUNCH_REQUESTS
+                                                 * LAUNCH_MAX_NEW),
+                  first_different_token_by_request=first)
+            del pd
+
+        # 3. item 1 with the async loop; its dispatches under the sync
+        # debug mode
+        asy = launch_serve(torch, cfg, mixed + ["--async-loop"], pa, pp,
+                           bf16, guard_dispatch=True)
+        same_async = (asy["tokens"] == sync["tokens"]
+                      and asy["routed_to"] == sync["routed_to"])
+        dispatched = sum(e["steps"].get("async_decode", 0)
+                         for e in asy["engines"].values())
+        both = all(min(e["launches"].values()) > 0
+                   and e["launches"] == e["expected_launches"]
+                   for e in asy["engines"].values())
+        # the sync serve again, so that sync and async walls are taken in
+        # turns (sync, async, sync) in one call
+        again = launch_serve(torch, cfg, mixed, pa, pp, bf16)
+        check("mixed x2, again", again, served_ok(again)
+              and again["tokens"] == sync["tokens"],
+              same_tokens_as_first_serve=again["tokens"] == sync["tokens"])
+        check("mixed x2, --async-loop", asy,
+              served_ok(asy) and same_async and both and dispatched > 0
+              and asy["guarded_dispatches"] == dispatched,
+              same_tokens_as_sync=same_async,
+              async_dispatches=dispatched,
+              dispatches_without_a_sync=asy["guarded_dispatches"],
+              sync_walls_s=[sync["wall_s"], again["wall_s"]],
+              async_wall_s=asy["wall_s"],
+              async_over_mean_sync_wall=2 * asy["wall_s"]
+              / (sync["wall_s"] + again["wall_s"]))
+
+        # 4. speculation with the async loop, against the sync loop; in
+        # float32, where speculation keeps the tokens (bf16 verify lanes
+        # and decode rows take different kernels: see the spec phase)
+        f32 = dict(SERVE_ECFG, dtype="float32")
+        sync32 = launch_serve(torch, cfg, mixed, pa, pp, f32)
+        spec = launch_serve(torch, cfg, mixed + [
+            "--spec-tokens", "4", "--async-loop"], pa, pp, f32)
+        same_spec = (spec["tokens"] == sync32["tokens"]
+                     and spec["routed_to"] == sync32["routed_to"])
+        drafted = sum(e["spec_drafted_tokens"]
+                      for e in spec["engines"].values())
+        check("mixed x2, float32, sync", sync32, served_ok(sync32))
+        check("mixed x2, float32, --spec-tokens 4 --async-loop", spec,
+              served_ok(spec) and same_spec and drafted > 0
+              and all(e["launches"] == e["expected_launches"]
+                      for e in spec["engines"].values()),
+              same_tokens_as_float32_sync=same_spec,
+              spec_drafted_tokens=drafted)
+    finally:
+        out = ROOT / "build"
+        out.mkdir(exist_ok=True)
+        (out / "chip_smoke_launch.log").write_text("\n".join(logs))
 
 
 # ------------------------------------------------------------ LoRA, tiers
@@ -1932,7 +2266,7 @@ def ptxas_summary(log):
 
 
 PHASES = ("kernels", "sampling", "step", "serve", "lora", "tiers", "spec",
-          "slot_step", "slot_serve", "timing", "profile")
+          "launch", "slot_step", "slot_serve", "timing", "profile")
 
 
 def main() -> int:
@@ -2013,6 +2347,10 @@ def main() -> int:
         spec_steps(torch, cfg, pa, pp)
         spec_serve(torch, cfg, pa, pp)
         emit("spec_done", seconds=time.perf_counter() - t0)
+    if "launch" in only:
+        t0 = time.perf_counter()
+        launch(torch, cfg, pa, pp)
+        emit("launch_done", seconds=time.perf_counter() - t0)
     if "slot_step" in only:
         slot_step(torch, gemma, fp)
     if "slot_serve" in only:

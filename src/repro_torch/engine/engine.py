@@ -33,10 +33,19 @@ accepts the longest prefix that matches the model's own samples.
 Sampling keys every token by (request seed, absolute position), so the
 output is the one step-by-step decoding gives, at any temperature.
 
+The async overlapped loop (``async_loop``): a decode-only step is
+dispatched (inputs, forward pass, sampling on the device) before the
+previous step's tokens are read back; the scheduler plans on PENDING
+placeholders, and the previous dispatch is resolved once the new one is
+queued.  Any other step resolves first.  Tokens are the sync loop's;
+``metrics()`` reports the seconds spent waiting for the device
+(``device_wait_s``) and the share of ``step()``'s wall that was not
+(``host_overhead_frac``).
+
 The engine runs on the card unless the caller names another device
 (``device="cpu"`` for tests); on a CUDA device only ``impl="kernel"``
 is accepted, so the plain attention never sits on the card's serving
-path.  Not ported yet, and refused when configured: the async loop.
+path.  Only DENSE layer runs are ported: a MoE config is refused.
 """
 from __future__ import annotations
 
@@ -54,10 +63,11 @@ from repro_torch.core.kvcache.tiers import (CompressedPage, HostPagePool,
 from repro_torch.device import resolve_device
 from repro_torch.engine import paged_model as PM
 from repro_torch.engine.page_table import PageAllocator, chunk_hashes
-from repro_torch.engine.request import Request
+from repro_torch.engine.request import Request, RequestState
 from repro_torch.engine.runner import ModelRunner
-from repro_torch.engine.scheduler import (EngineMetrics, ScheduleOutput,
-                                          Scheduler, SchedulerConfig)
+from repro_torch.engine.scheduler import (EngineMetrics, PENDING_TOKEN,
+                                          ScheduleOutput, Scheduler,
+                                          SchedulerConfig)
 from repro_torch.models.config import DENSE, ModelConfig
 
 
@@ -65,9 +75,7 @@ from repro_torch.models.config import DENSE, ModelConfig
 class EngineConfig:
     """The JAX engine's configuration, field for field (``impl`` takes
     ``"kernel"`` or ``"ref"``).  See ``repro/engine/engine.py`` for what
-    each field does; the field of the feature that is not ported yet
-    (the async loop) is kept so that configurations carry over, and is
-    refused when set."""
+    each field does."""
     page_size: int = 16
     num_pages: int = 512
     max_batch: int = 8              # decode slots
@@ -135,16 +143,6 @@ class EngineConfig:
             spec_probe_interval=self.spec_probe_interval, **kw)
 
 
-def _refuse_unported(ecfg: EngineConfig) -> None:
-    unported = {
-        "async loop (async_loop)": ecfg.async_loop,
-    }
-    named = [name for name, on in unported.items() if on]
-    if named:
-        raise NotImplementedError(
-            "not ported to the PyTorch engine yet: " + ", ".join(named))
-
-
 class InferenceEngine:
     def __init__(self, cfg: ModelConfig, ecfg: EngineConfig = None,
                  params=None, clock: Callable[[], float] = time.monotonic,
@@ -158,7 +156,6 @@ class InferenceEngine:
         if cfg.layer_runs[0][0] != DENSE:
             raise NotImplementedError(
                 f"{cfg.name}: only DENSE layers are ported so far")
-        _refuse_unported(ecfg)
         validate_wire_dtype(ecfg.wire_dtype)
         self.device = resolve_device(device)
         if self.device.type == "cuda" and ecfg.impl != "kernel":
@@ -203,6 +200,14 @@ class InferenceEngine:
         # batch are deferred (applied at the next step() once the last
         # user drains): the control plane never disturbs a batch
         self._deferred_unloads: set = set()
+        # async overlapped loop: the ONE in-flight dispatch record,
+        # {reqs, tok_dev (the runner's InFlight tokens), idxs (placeholder
+        # positions)}, resolved when the next step is dispatched (or at
+        # drain)
+        self._pending: Optional[dict] = None
+        # wall time spent inside step(): with runner.device_wait_s it
+        # gives host_overhead_frac, the gap the async loop hides
+        self._step_wall_s = 0.0
         # predictive promotion: a daemon thread reads SSD pages off the
         # critical path; landed payloads queue here and are installed
         # into the host pool at step boundaries by the engine thread
@@ -238,6 +243,11 @@ class InferenceEngine:
     @property
     def finished(self) -> List[Request]:
         return self.sched.finished
+
+    @property
+    def prefilling(self) -> Optional[Request]:
+        """Back-compat view of the (first) in-flight prefill."""
+        return self.sched.prefills[0] if self.sched.prefills else None
 
     @property
     def handoff(self) -> Optional[Callable[[Request], None]]:
@@ -379,10 +389,18 @@ class InferenceEngine:
     def step(self) -> int:
         """One scheduler iteration.  Returns #tokens produced (one per
         decode row, several per row when a speculative step verified
-        drafts, one per *completed* prefill)."""
-        self._flush_deferred_unloads()
-        self._land_promotions()
-        return self._exec(self.sched.schedule(self.clock()))
+        drafts, one per *completed* prefill).  With ``async_loop`` the
+        count for an overlapped decode step is the number DISPATCHED
+        (read back when the next step is issued)."""
+        t0 = time.perf_counter()
+        try:
+            self._flush_deferred_unloads()
+            self._land_promotions()
+            if self.ecfg.async_loop:
+                return self._step_async()
+            return self._exec(self.sched.schedule(self.clock()))
+        finally:
+            self._step_wall_s += time.perf_counter() - t0
 
     def _exec(self, out: ScheduleOutput) -> int:
         """Execute one declarative schedule synchronously."""
@@ -434,6 +452,79 @@ class InferenceEngine:
                                              emitted, self.clock())
         return produced
 
+    # ------------------------------------------------ async overlapped loop
+    def _step_async(self) -> int:
+        """Overlap host scheduling with device compute: a decode-only
+        step is dispatched (inputs, forward pass, sampling on the device)
+        WITHOUT waiting for the previous step's tokens; the scheduler
+        plans on PENDING placeholders and the previous dispatch is
+        resolved only after the new one is queued.  Any other step shape
+        (prefill chunks, speculative drafts, idle) is a sync point:
+        resolve first, re-plan on the real history, run the normal
+        path."""
+        out = self.sched.schedule(self.clock())
+        if self._overlappable(out):
+            return self._dispatch_async(out.decode)
+        if self._pending is not None:
+            self.drain_async()
+            # resolution patched real tokens (and may have finished or
+            # truncated requests): the plan must be rebuilt on it
+            out = self.sched.schedule(self.clock())
+            if self._overlappable(out):
+                return self._dispatch_async(out.decode)
+        return self._exec(out)
+
+    @staticmethod
+    def _overlappable(out: ScheduleOutput) -> bool:
+        return out.mode == "decode" and not out.spec and bool(out.decode)
+
+    def _dispatch_async(self, reqs: List[Request]) -> int:
+        reqs = list(reqs)
+        tok_dev = self.runner.run_decode_async(reqs, self._pending)
+        idxs = self.sched.on_decode_provisional(reqs, self.clock())
+        prev, self._pending = self._pending, dict(
+            reqs=reqs, tok_dev=tok_dev, idxs=idxs)
+        if prev is not None:
+            self._resolve_async(prev)
+        return len(reqs)
+
+    def _resolve_async(self, rec: dict) -> None:
+        """Read back one dispatched step's sampled tokens and patch them
+        over the PENDING placeholders.  Stop-token finishes are
+        retroactive: the stop lands at its true position and anything
+        dispatched past it (at most the one in-flight step) is
+        truncated, so output streams match the sync loop token for
+        token.  A placeholder that vanished meanwhile (preempt reset,
+        stop truncation) is skipped by the guard."""
+        toks = self.runner.readback(rec["tok_dev"])
+        now = self.clock()
+        for i, (r, idx) in enumerate(zip(rec["reqs"], rec["idxs"])):
+            if (idx >= len(r.output_tokens)
+                    or r.output_tokens[idx] != PENDING_TOKEN):
+                continue
+            tok = int(toks[i])
+            r.output_tokens[idx] = tok
+            r._pending_toks = max(
+                getattr(r, "_pending_toks", 1) - 1, 0)
+            sp = r.sampling
+            if (self.sched.honor_stop_token and sp.stop_token is not None
+                    and tok == sp.stop_token):
+                if len(r.output_tokens) > idx + 1:
+                    # over-dispatched past the stop: drop the tail (its
+                    # placeholders die here; the later record's patch
+                    # guard skips the vanished indices)
+                    del r.output_tokens[idx + 1:]
+                    del r.token_times[idx:]
+                    r._pending_toks = 0
+                if r.state is RequestState.RUNNING:
+                    self.sched.maybe_finish(r, now)
+
+    def drain_async(self) -> None:
+        """Resolve the in-flight async dispatch (no-op when none)."""
+        rec, self._pending = self._pending, None
+        if rec is not None:
+            self._resolve_async(rec)
+
     def _advance_prefill(self, work, logits) -> bool:
         """Advance one prefill chunk; True when it produced a token
         (prefill completed and its first token was sampled)."""
@@ -474,7 +565,12 @@ class InferenceEngine:
     def run_until_idle(self, max_steps: int = 100_000) -> None:
         for _ in range(max_steps):
             if not self.has_work:
-                return
+                # async loop: the final dispatch may still be in flight
+                # after the last request "finished" on a placeholder;
+                # resolve it before declaring idle
+                self.drain_async()
+                if not self.has_work:
+                    return
             self.step()
         raise RuntimeError("engine did not drain")
 
@@ -482,10 +578,15 @@ class InferenceEngine:
     def metrics(self) -> EngineMetrics:
         m = self.sched.metrics(self.clock(),
                                loaded_adapters=tuple(self.adapters))
+        m.device_wait_s = self.runner.device_wait_s
         m.lora_cold_loads = self.runner.adapter_loads
         m.lora_cold_load_s = self.runner.adapter_load_s
         m.lora_evictions = self.runner.adapter_evictions
         m.lora_host_hits = self.runner.adapter_host_hits
+        if self._step_wall_s > 0:
+            m.host_overhead_frac = min(max(
+                1.0 - self.runner.device_wait_s / self._step_wall_s,
+                0.0), 1.0)
         return m
 
     def match_prefix_len(self, tokens) -> int:

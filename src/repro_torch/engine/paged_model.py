@@ -249,19 +249,23 @@ def decode_batch(params, pool: PagePool, tokens: torch.Tensor,
                  positions: torch.Tensor, block_tables: torch.Tensor,
                  active: torch.Tensor, lora: Optional[dict] = None,
                  adapter_ids: Optional[torch.Tensor] = None, *,
-                 cfg: ModelConfig, page_size: int, impl: str = "kernel"
+                 cfg: ModelConfig, page_size: int, impl: str = "kernel",
+                 rows: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, PagePool]:
     """One decode step for a batch.
 
     tokens: (B,) int32; positions: (B,) int32 next position (== current
     length); block_tables: (B, NB) int32; active: (B,) bool (padding
     slots excluded; they get length 0); lora, adapter_ids: the adapter
-    bank and (B,) slots (None: no LoRA).  Returns (logits (B, V), pool
-    updated in place).
+    bank and (B,) slots (None: no LoRA); rows: the indices of the active
+    rows, where the caller knows them (found from ``active`` otherwise,
+    which waits for the device).  Returns (logits (B, V), pool updated
+    in place).
     """
     x = M.embed(params, cfg, tokens[:, None])
     lengths = torch.where(active, positions + 1, 0).to(torch.int32)
-    rows = torch.nonzero(active).squeeze(1)
+    if rows is None:
+        rows = torch.nonzero(active).squeeze(1)
     pos_a = positions[rows].long()
     pidx = block_tables[rows, pos_a // page_size].long()
     slot = pos_a % page_size

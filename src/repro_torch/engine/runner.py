@@ -1,5 +1,5 @@
 """ModelRunner: executes a ``ScheduleOutput`` on the PyTorch model, the
-counterpart of ``repro/engine/runner.py`` (no async loop yet).
+counterpart of ``repro/engine/runner.py``.
 
 The runner owns everything device-shaped: the params, the paged KV
 ``PagePool`` (updated in place by every step), the high-density LoRA
@@ -14,6 +14,15 @@ speculative verification pass samples each position as step-by-step
 decoding would; without, one split of the runner's own key stream
 (``PRNGKey(seed + 1)``) per call.
 
+The async loop's decode step (``run_decode_async``) queues its inputs,
+the forward pass, the sampling and the copy of the sampled tokens to the
+host on the device's current stream without waiting for anything: its
+inputs travel from a pinned staging buffer (``non_blocking``), tokens
+still in flight come from the previous dispatch's device tensor, and the
+copy back lands in a pinned tensor behind an event.  ``readback`` is the
+one wait, and charges it to ``device_wait_s``, as the sync paths'
+readbacks are charged.
+
 It also owns the page *payload* side of the KV tiers: a page leaves the
 device as numpy ``(L, page, Hkv, D)`` K and V arrays, the JAX package's
 format (bf16 as ``ml_dtypes.bfloat16`` where that package imports, else
@@ -24,7 +33,7 @@ from __future__ import annotations
 
 import time
 import zlib
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -68,8 +77,22 @@ def from_payload(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+class InFlight(NamedTuple):
+    """The sampled tokens of an async decode dispatch: ``dev`` (B,) int32
+    on the device, which the next dispatch reads without a sync, and
+    ``host``, their copy queued behind the step (pinned on a card), done
+    when ``done`` is (None on the CPU, where it is done at once)."""
+    dev: torch.Tensor
+    host: torch.Tensor
+    done: Optional["torch.cuda.Event"]
+
+
 class ModelRunner:
     """Turns declarative schedules into forward passes on ``device``."""
+
+    # process-wide device-wait accumulator (the per-runner one summed
+    # over every runner of the process)
+    total_device_wait_s = 0.0
 
     def __init__(self, cfg: ModelConfig, ecfg, device: torch.device,
                  params=None, seed: int = 0):
@@ -124,6 +147,45 @@ class ModelRunner:
         self._spec_toks = np.zeros((b, sd), np.int32)
         self._spec_ctx = np.zeros(b, np.int32)
         self._spec_len = np.zeros(b, np.int32)
+        # seconds spent blocked on the device (readbacks and the staging
+        # buffer's guard): with the engine's step wall it gives
+        # host_overhead_frac, the share of a step the async loop hides
+        self.device_wait_s = 0.0
+        # the async decode step's inputs, packed into one int32 buffer
+        # (pinned on a card, so its copy is queued, not waited on) and
+        # the event recorded after its last copy: the buffer is refilled
+        # only once that copy has run (``_sync_inflight``)
+        self._stage = torch.zeros(
+            6 * b + b * nbmax, dtype=torch.int32,
+            pin_memory=device.type == "cuda")
+        self._inflight: Optional[torch.cuda.Event] = None
+
+    def _charge(self, dt: float) -> None:
+        self.device_wait_s += dt
+        ModelRunner.total_device_wait_s += dt
+
+    def _sync_inflight(self) -> None:
+        """Wait until the staging buffer's last copy to the device has
+        run, so that refilling it cannot change what that copy reads."""
+        if self._inflight is not None:
+            t0 = time.perf_counter()
+            self._inflight.synchronize()
+            self._charge(time.perf_counter() - t0)
+            self._inflight = None
+
+    def readback(self, x: Union[torch.Tensor, InFlight]) -> np.ndarray:
+        """A device tensor (or an async dispatch's tokens) on the host,
+        the wait charged to ``device_wait_s``: the async loop's one sync
+        point, and the end of every sync step."""
+        t0 = time.perf_counter()
+        if isinstance(x, InFlight):
+            if x.done is not None:
+                x.done.synchronize()
+            out = x.host.numpy().copy()
+        else:
+            out = x.cpu().numpy()
+        self._charge(time.perf_counter() - t0)
+        return out
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         """Copy a host buffer to the device (a copy on the CPU too: the
@@ -262,8 +324,8 @@ class ModelRunner:
                 seeds[i] = r.sampling.seed
                 pos[i] = positions[i]
             keys = row_keys(seeds, pos)
-        return sample(logits, sub, temps, top_k=0, top_p=tops,
-                      keys=keys).cpu().numpy()
+        return self.readback(sample(logits, sub, temps, top_k=0,
+                                    top_p=tops, keys=keys))
 
     # ------------------------------------------------------- input prep
     def _pages_for(self, n_tokens: int) -> int:
@@ -422,14 +484,88 @@ class ModelRunner:
             base = r.prompt_len + len(r.output_tokens)
             pos[i * sd:(i + 1) * sd] = base + np.arange(sd)
         keys = row_keys(seeds, pos) if (temps > 0).any() else None
-        sampled = sample(spec_logits.reshape(b * sd, v), self._key, temps,
-                         top_k=0, top_p=tops, keys=keys
-                         ).cpu().numpy().reshape(b, sd)
+        sampled = self.readback(sample(
+            spec_logits.reshape(b * sd, v), self._key, temps, top_k=0,
+            top_p=tops, keys=keys)).reshape(b, sd)
         emitted = []
         for i, d in enumerate(spec):
             m = accept_length(d, sampled[i, :len(d) + 1])
             emitted.append([int(t) for t in sampled[i, :m + 1]])
         return emitted
+
+    # ------------------------------------------------ async decode step
+    def run_decode_async(self, reqs: List[Request],
+                         prev: Optional[dict]) -> InFlight:
+        """Dispatch a decode step WITHOUT waiting for the previous one.
+
+        The inputs go through the staging buffer to the device without a
+        wait; a row whose last token is still in flight (the host holds
+        a PENDING placeholder for it) takes it on the device from
+        ``prev["tok_dev"]``, the previous dispatch's tokens, through an
+        index made on the host; the step samples on the device with
+        per-position keys and queues the copy of its tokens to the host.
+        Returns the step's :class:`InFlight` tokens."""
+        ecfg = self.ecfg
+        b = ecfg.max_batch
+        nb = self._bt_width(max((self._pages_for(
+            r.prompt_len + len(r.output_tokens)) for r in reqs),
+            default=1))
+        n_in = 6 * b + b * nb
+        self._sync_inflight()
+        buf = self._stage.numpy()[:n_in]
+        buf[:] = 0
+        toks, pos, active, aids, src, from_prev = buf[:6 * b].reshape(6, b)
+        bts = buf[6 * b:].reshape(b, nb)
+        bts[:] = ecfg.num_pages             # scratch page
+        temps = np.zeros(b, np.float32)
+        tops = np.ones(b, np.float32)
+        seeds = np.zeros(b, np.int64)
+        prev_rows = ({id(r): j for j, r in enumerate(prev["reqs"])}
+                     if prev else {})
+        for i, r in enumerate(reqs):
+            if getattr(r, "_pending_toks", 0) and id(r) in prev_rows:
+                src[i] = prev_rows[id(r)]   # token still on the device
+                from_prev[i] = 1
+            else:
+                toks[i] = r.output_tokens[-1]
+            pos[i] = r.prompt_len + len(r.output_tokens) - 1
+            n = min(len(r.page_ids), nb)
+            bts[i, :n] = r.page_ids[:n]
+            active[i] = 1
+            aids[i] = self._aid(r)
+            temps[i] = r.sampling.temperature
+            tops[i] = r.sampling.top_p
+            seeds[i] = r.sampling.seed
+        # one copy of the packed inputs, queued behind the device's work
+        if self.device.type == "cuda":
+            dev = self._stage[:n_in].to(self.device, non_blocking=True)
+            self._inflight = torch.cuda.Event()
+            self._inflight.record()
+        else:
+            dev = self._stage[:n_in].clone()
+        d_toks, d_pos, d_active, d_aids, d_src, d_from = \
+            dev[:6 * b].view(6, b)
+        tok_in = d_toks
+        if from_prev.any():
+            tok_in = torch.where(
+                d_from.bool(),
+                prev["tok_dev"].dev.index_select(0, d_src.long()), d_toks)
+        logits, self.pool = PM.decode_batch(
+            self.params, self.pool, tok_in, d_pos, dev[6 * b:].view(b, nb),
+            d_active.bool(), self._bank(aids), d_aids, cfg=self.cfg,
+            page_size=ecfg.page_size, impl=ecfg.impl,
+            rows=torch.arange(len(reqs), device=self.device))
+        keys = (row_keys(seeds, pos.astype(np.int64) + 1)
+                if (temps > 0).any() else None)
+        tok_dev = sample(logits, self._key, temps, top_k=0, top_p=tops,
+                         keys=keys)
+        if self.device.type != "cuda":
+            return InFlight(tok_dev, tok_dev, None)
+        host = torch.empty(b, dtype=torch.int32, pin_memory=True)
+        host.copy_(tok_dev, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return InFlight(tok_dev, host, done)
 
     def run_prefill(self, work: PrefillWork) -> torch.Tensor:
         """One (possibly chunked) prefill for ONE request (two-phase)."""

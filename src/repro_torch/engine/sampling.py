@@ -298,21 +298,26 @@ def sample(logits: torch.Tensor, key: Optional[torch.Tensor],
     # argmax on the device
     temperature = torch.as_tensor(temperature, dtype=torch.float32
                                   ).reshape(b).cpu()
-    rows = torch.nonzero(temperature > 0).squeeze(1)
-    if rows.numel() == 0:
+    rows_h = torch.nonzero(temperature > 0).squeeze(1)
+    if rows_h.numel() == 0:
         return greedy.to(torch.int32)
     if keys is None:
         keys = split(key, b)
-    keys = keys[rows.to(keys.device)].to(dev)
-    t = torch.clamp_min(temperature[rows], 1e-4)[:, None].to(dev)
-    rows = rows.to(dev)
+    # what the host made goes over with non_blocking copies, which do
+    # not wait for the device's queue (the async loop's dispatch samples)
+    keys = keys[rows_h.to(keys.device, non_blocking=True)].to(
+        dev, non_blocking=True)
+    t = torch.clamp_min(temperature[rows_h], 1e-4)[:, None].to(
+        dev, non_blocking=True)
+    rows = rows_h.to(dev, non_blocking=True)
     scaled = _ftz(_ftz(logits[rows]) / t)
     if top_k:
         kth = torch.sort(scaled, dim=-1).values[:, -top_k][:, None]
         scaled = torch.where(scaled >= kth, scaled, -torch.inf)
     if top_p is not None:
         top_p = torch.as_tensor(top_p, dtype=torch.float32).reshape(b)
-        top_p = top_p[rows.to(top_p.device)].to(dev)
+        top_p = top_p[rows_h.to(top_p.device, non_blocking=True)].to(
+            dev, non_blocking=True)
         sorted_ = torch.sort(scaled, dim=-1, descending=True).values
         un = _exp(_ftz(sorted_ - sorted_[:, :1]))
         probs = _ftz(un / _xla_sum(un)[:, None])

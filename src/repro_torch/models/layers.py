@@ -43,8 +43,10 @@ def rope_freqs(positions: torch.Tensor, head_dim: int, theta: float):
     half = head_dim // 2
     exps = torch.arange(half, dtype=torch.float32,
                         device=positions.device) / half
-    inv = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                       device=positions.device), exps)
+    # torch.full fills on the device; torch.tensor(theta, device=...)
+    # would copy from the host and wait for the device's queue
+    inv = 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                     device=positions.device), exps)
     ang = positions.float()[..., None] * inv
     return torch.sin(ang), torch.cos(ang)
 

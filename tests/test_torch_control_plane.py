@@ -1,0 +1,257 @@
+"""The control plane over the port's engines.
+
+1. Every module the port copies from the JAX package (pure Python: the
+   configs, the scheduler and its helpers, the KV cache pool and tiers,
+   and the control plane: autoscaler, runtime sidecar, LoRA controller,
+   GPU optimizer, gateway, orchestration, the workload summaries) equals
+   its reference once ``repro.`` reads ``repro_torch.``: the ASTs are
+   compared with docstrings stripped.  The differences that are meant
+   are listed in ``DOCUMENTED`` and explained in those files.
+2. The real-engine pins of the control plane, replayed with port engines
+   that carry the JAX engines' weights (``bridge.params_from_numpy``):
+   the gateway round trip (``tests/test_system.py:99``), live P -> D role
+   migration (``tests/test_role_pools.py:208``) and crash recovery from
+   the recovery log (``tests/test_chaos.py:350``), each token-identical
+   to the JAX engines.
+"""
+import ast
+import pathlib
+import re
+import time
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import numpy as np  # noqa: E402
+
+import repro.engine as J  # noqa: E402
+from repro.configs import get_reduced_config as jax_reduced  # noqa: E402
+from repro.core.gateway import Gateway as JGateway  # noqa: E402
+from repro.models import model as JM  # noqa: E402
+from repro_torch import bridge  # noqa: E402
+from repro_torch.configs import get_reduced_config  # noqa: E402
+from repro_torch.core.gateway import Gateway  # noqa: E402
+from repro_torch.core.kvcache.pool import DistributedKVPool  # noqa: E402
+from repro_torch.core.orchestration.pools import RolePoolManager  # noqa: E402
+from repro_torch.engine import (EngineConfig, InferenceEngine,  # noqa: E402
+                                Request, RequestState, SamplingParams)
+
+torch.set_num_threads(1)
+
+SRC = pathlib.Path(__file__).resolve().parent.parent / "src"
+PACKAGES = ("core/autoscaler", "core/runtime", "core/lora",
+            "core/optimizer", "core/gateway", "core/orchestration",
+            "core/kvcache", "configs")
+COPIES = sorted(
+    [str(p.relative_to(SRC / "repro")) for pkg in PACKAGES
+     for p in (SRC / "repro" / pkg).glob("*.py")]
+    + ["core/sim/__init__.py", "core/sim/workloads.py", "models/config.py",
+       "engine/scheduler.py", "engine/page_table.py", "engine/request.py",
+       "engine/speculative.py"])
+# meant differences, each explained in the port's file
+DOCUMENTED = {
+    "core/kvcache/tiers.py",        # bf16 payloads without ml_dtypes
+    "core/kvcache/__init__.py",     # also exports KVPoolError
+    "core/sim/__init__.py",         # the workloads only, no simulator
+}
+ENGINE_KW = dict(page_size=8, num_pages=64, max_batch=4,
+                 max_pages_per_seq=16, chunk_size=16)
+
+
+def _normalized(text: str) -> str:
+    tree = ast.parse(text)
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(body, list) and body
+                and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            node.body = body[1:] or [ast.Pass()]
+    return ast.dump(tree)
+
+
+def _pair(rel: str):
+    ref = re.sub(r"\brepro\.", "repro_torch.",
+                 (SRC / "repro" / rel).read_text())
+    return _normalized(ref), _normalized((SRC / "repro_torch" / rel
+                                          ).read_text())
+
+
+@pytest.mark.parametrize("rel", [r for r in COPIES if r not in DOCUMENTED])
+def test_copied_module_equals_reference(rel):
+    ref, port = _pair(rel)
+    assert port == ref, f"{rel} differs from repro's copy"
+
+
+@pytest.mark.parametrize("rel", sorted(DOCUMENTED))
+def test_documented_differences_are_real(rel):
+    """The list stays honest: each listed file does differ (drop it from
+    the list once it is a plain copy again)."""
+    ref, port = _pair(rel)
+    assert port != ref
+
+
+# ------------------------------------------------------ real engines
+@pytest.fixture(scope="module")
+def weights():
+    jcfg, cfg = jax_reduced("qwen3-0.6b"), get_reduced_config("qwen3-0.6b")
+    jparams = {s: JM.init(jcfg, jax.random.PRNGKey(s)) for s in (0, 1)}
+    params = {s: bridge.params_from_numpy(jax.tree.map(np.asarray, p), cfg,
+                                          device="cpu")
+              for s, p in jparams.items()}
+    return jcfg, cfg, jparams, params
+
+
+def _clock():
+    t0 = time.monotonic()
+    return lambda: time.monotonic() - t0
+
+
+def _jax_alone(w, prompt, max_new, seed=0):
+    jcfg, _, jparams, _ = w
+    eng = J.InferenceEngine(jcfg, J.EngineConfig(**ENGINE_KW),
+                            params=jparams[seed])
+    r = J.Request(prompt_tokens=list(prompt),
+                  sampling=J.SamplingParams(max_new_tokens=max_new))
+    eng.submit(r)
+    eng.run_until_idle()
+    return list(r.output_tokens)
+
+
+def test_gateway_to_engine_roundtrip(weights):
+    """tests/test_system.py:99 on port engines, against the same
+    routing through the JAX package's gateway and engines."""
+    jcfg, cfg, jparams, params = weights
+
+    def serve(gw_cls, make, req_cls, sp_cls):
+        engines = {"e0": make(0), "e1": make(1)}
+        gw = gw_cls(policy="least-request")
+        for eid, eng in engines.items():
+            gw.register_engine(eid, eng)
+        rng = np.random.default_rng(4)
+        out = []
+        for i in range(6):
+            p = rng.integers(0, cfg.vocab_size, 10 + i).tolist()
+            r = req_cls(prompt_tokens=p,
+                        sampling=sp_cls(max_new_tokens=3))
+            eid = gw.route(p, est_output_tokens=3)
+            engines[eid].submit(r)
+            out.append((eid, r))
+        for eng in engines.values():
+            eng.run_until_idle()
+            assert eng.alloc.num_free == eng.alloc.num_pages
+        assert len(gw.stats.per_engine) == 2      # both engines used
+        return [(eid, list(r.output_tokens)) for eid, r in out]
+
+    port = serve(Gateway, lambda s: InferenceEngine(
+        cfg, EngineConfig(**ENGINE_KW), params=params[s], seed=s,
+        device="cpu"), Request, SamplingParams)
+    ref = serve(JGateway, lambda s: J.InferenceEngine(
+        jcfg, J.EngineConfig(**ENGINE_KW), params=jparams[s], seed=s),
+        J.Request, J.SamplingParams)
+    assert all(len(t) == 3 for _, t in port)
+    assert port == ref
+
+
+def test_real_engine_migration_token_identical(weights):
+    """tests/test_role_pools.py:208 on port engines: a 2P+1D group whose
+    prefill engine is told to become a decoder mid-prefill; the in-flight
+    prefill hands off through the pool, the engine flips, and a later
+    request decodes on the migrated member.  Outputs equal a lone JAX
+    engine's with the same weights."""
+    _, cfg, _, params = weights
+    clock = _clock()
+    pool = DistributedKVPool(capacity_bytes=1 << 30, metadata_lag=0.0,
+                             clock=clock)
+    mgr = RolePoolManager(clock=clock)
+    engines = {}
+    for eid, role in (("p0", "prefill"), ("p1", "prefill"),
+                      ("d0", "decode")):
+        engines[eid] = InferenceEngine(
+            cfg, EngineConfig(role=role, **ENGINE_KW), clock=clock,
+            kv_pool_client=pool, engine_id=eid, params=params[0],
+            device="cpu")
+        mgr.add_engine(eid, engines[eid], role)
+    rng = np.random.default_rng(34)
+    prompt_a = rng.integers(0, cfg.vocab_size, 40).tolist()
+    prompt_b = rng.integers(0, cfg.vocab_size, 24).tolist()
+    req_a = Request(prompt_tokens=list(prompt_a),
+                    sampling=SamplingParams(max_new_tokens=6))
+    engines["p0"].submit(req_a)
+    engines["p0"].step()                     # mid-prefill (40 > chunk 16)
+    assert engines["p0"].prefills and engines["p0"].prefilling is req_a
+    mig = mgr.request_migration("prefill", "decode", clock(),
+                                engine_id="p0")
+    assert mig is not None
+    assert list(mgr.frontends()) == ["p1"]   # new work routes around p0
+    req_b = Request(prompt_tokens=list(prompt_b),
+                    sampling=SamplingParams(max_new_tokens=6))
+    mgr.submit(req_b)
+    for _ in range(300):
+        busy = False
+        for eng in engines.values():
+            if eng.has_work:
+                eng.step()
+                busy = True
+        mgr.poll(clock())
+        if not busy and not mgr.draining:
+            break
+    assert mig.done
+    assert engines["p0"].sched.scfg.role == "decode"
+    assert mgr.counts()["prefill"] == 1 and mgr.counts()["decode"] == 2
+    assert req_a.state == RequestState.FINISHED
+    assert req_b.state == RequestState.FINISHED
+    assert req_a not in engines["p0"].finished   # handed off by p0
+    for prompt, req in ((prompt_a, req_a), (prompt_b, req_b)):
+        assert req.output_tokens == _jax_alone(weights, prompt, 6)
+
+
+def test_crash_recovery_real_engine_token_identical(weights):
+    """tests/test_chaos.py:350 on port engines: kill engine A mid-decode
+    past a recovery-log checkpoint; the harvested request resumes on B
+    from the checkpointed pages (fetched from the pool, not recomputed)
+    and ends with the tokens of an uncrashed JAX engine."""
+    _, cfg, _, params = weights
+    clock = _clock()
+    pool = DistributedKVPool(capacity_bytes=1 << 30, metadata_lag=0.0,
+                             clock=clock)
+    kw = dict(ENGINE_KW, ckpt_interval_tokens=8)   # every full page
+    a, b = (InferenceEngine(cfg, EngineConfig(**kw), clock=clock,
+                            kv_pool_client=pool, engine_id=eid,
+                            params=params[0], device="cpu")
+            for eid in ("a", "b"))
+    rng = np.random.default_rng(53)
+    prompt = rng.integers(0, cfg.vocab_size, 20).tolist()
+    max_new = 16
+    ref = _jax_alone(weights, prompt, max_new)
+    assert len(ref) == max_new
+
+    req = Request(prompt_tokens=list(prompt),
+                  sampling=SamplingParams(max_new_tokens=max_new))
+    a.submit(req)
+    for _ in range(400):                         # decode past a page edge
+        if len(req.output_tokens) >= 10:
+            break
+        a.step()
+    assert len(req.output_tokens) >= 10
+    generated = list(req.output_tokens)
+    assert a.metrics().ckpt_pages >= 1
+    assert req.ckpt_tokens > len(prompt)         # a generated page logged
+
+    lost = a.sched.crash_takeover(a.clock())     # engine A is dead now
+    assert lost == [req]
+    assert req.state is RequestState.QUEUED
+    covered = req.ckpt_tokens - len(prompt)
+    assert req.output_tokens == generated[:covered]
+    assert req.prompt_tokens == prompt
+    resume_cov = req.ckpt_tokens
+
+    b.submit(req)
+    b.run_until_idle()
+    assert req.state is RequestState.FINISHED
+    assert req.output_tokens == ref
+    assert b.metrics().remote_hit_tokens == resume_cov
+    assert b.sched._m["crash_resumes"] == 1
+    assert b.alloc.num_free == b.alloc.num_pages
