@@ -21,7 +21,10 @@ Phases, each printing one JSON line:
             ``paged_prefill`` also at speculative verify shapes through
             ``ops.paged_verify`` (lanes of 2 and 5 rows padded to 8,
             contexts ending on and across page boundaries, idle lanes
-            zero, G 2 and 16, float32 and bf16);
+            zero, G 2, 3 and 16, float32 and bf16); both paged kernels
+            at granite-moe-3b-a800m's G 3 (H 24, Hkv 8, D 64): its
+            serving shape, long contexts, chunks at context 0 and across
+            page boundaries;
    sampling the port's threefry PRNG on the card bit for bit against
             values recorded from jax 0.9.0 (``row_keys``, ``split``,
             ``uniform``, ``gumbel``), the XLA-rounded logs of every
@@ -30,8 +33,9 @@ Phases, each printing one JSON line:
             1.0, whose token-0 rows included) against the JAX sampler's
             recorded tokens and the CPU, at V 64 and 151,936; its time;
 4. step     each full-width qwen3-0.6b step function (mixed_step,
-            prefill_step, decode_batch) in float32 with the kernels and
-            again with the plain versions: logits and pools must agree;
+            prefill_step, decode_batch, spec_decode_step) in float32
+            with the kernels and again with the plain versions: logits
+            and pools must agree;
 5. serve    16 greedy requests through ``InferenceEngine`` at full width
             in bfloat16, twice on fresh engines: every request finishes,
             no page leaks, the same tokens both times, and each kernel
@@ -85,18 +89,37 @@ Phases, each printing one JSON line:
 9. slot serve  8 greedy requests (prompts 1100-3000 tokens, all longer
             than the 1024 window) through ``SlotEngine`` at full width
             in bfloat16, twice on fresh engines: every request finishes
-            with the same tokens both times, ``flash_prefill`` launched
-            exactly 34 times per prefill and the paged kernels never;
-10. timing  each kernel, its plain version, the library call and the
-            least time the card could take, at the serving shapes, and
+            with the same tokens both times, finite logits,
+            ``flash_prefill`` launched exactly 34 times per prefill and
+            the paged kernels never;
+10. moe     mixture-of-experts and MLA at full width: ``moe_ffn`` on the
+            card against the CPU (granite-moe-3b-a800m's widths, float32,
+            capacity factor 1.25, T 136 and 8: the same kept (token,
+            expert) pairs bit for bit, dropped pairs at T 136, outputs
+            within the float32 tolerances; its bf16 time); full-depth
+            granite's mixed_step, prefill_step, decode_batch and
+            spec_decode_step in float32 with the kernels and with the
+            plain versions; granite's bf16 serve as in phase 5 (twice,
+            32 launches of each paged kernel a step that needs it), and
+            once more with ``async_loop=True``, every async dispatch
+            under ``set_sync_debug_mode("error")``, with the sync run's
+            tokens; deepseek-v2 at its published widths cut to 2 layers
+            (MLA_DENSE, MLA_MOE) through ``SlotEngine`` in bf16, 4
+            greedy requests (prompts 512-2000, 16 new tokens) twice:
+            the same tokens, finite logits, no kernel launched;
+11. timing  each kernel, its plain version, the library call and the
+            least time the card could take, at the serving shapes (also
+            at granite's G 3 for the paged kernels), and
             ``paged_attention`` at long contexts and glm4-9b's group
             shape; each kernel's device time a call from a profiler
             trace;
-11. profile host wall and device time, by kind of kernel
+12. profile host wall and device time, by kind of kernel
             (torch.profiler), of one full-width bf16 paged mixed_step
             (without and with 4 adapters), one decode_batch of 8 rows
-            and one spec_decode_step of 8 lanes of 5 rows, one gemma3-4b
-            slot prefill of 2048 tokens and one 4-slot decode step.
+            and one spec_decode_step of 8 lanes of 5 rows, granite's
+            mixed_step and decode_batch beside its weight-read bound,
+            one gemma3-4b slot prefill of 2048 tokens and one 4-slot
+            decode step.
 
 Then the line ``{"kernels": [...]}``, the nvidia-smi line, and as the
 last line ``{"ok": true, "device": {...}}``.  ``--only kernels,timing``
@@ -150,6 +173,9 @@ TIER_MAX_NEW = 16
 SLOT_ECFG = dict(max_slots=4, max_len=4096, dtype="bfloat16")
 SLOT_REQUESTS, SLOT_MAX_NEW, SLOT_PROMPTS = 8, 32, (1100, 3000)
 SLOT_STEP_PROMPT, SLOT_STEP_DECODES = 1500, 4
+# the MLA slot serve: deepseek-v2 cut to 2 layers at full width
+MLA_ECFG = dict(max_slots=4, max_len=2048, dtype="bfloat16")
+MLA_REQUESTS, MLA_MAX_NEW, MLA_PROMPTS = 4, 16, (512, 2000)
 # the launch phase: the port's launcher at full width with the serve
 # phase's engine sizes; prompts of the launcher's 24-token shared prefix
 # and a random tail
@@ -478,6 +504,28 @@ def check_kernels(torch, ops_mod):
                                 outs[0].float() - outs[1].float()).abs()
                             .max().item(), tol=0.0,
                             ok=bool(torch.equal(outs[0], outs[1]))))
+    # granite-moe-3b-a800m's group (H 24, Hkv 8, D 64, G 3; page 16):
+    # neither G nor H is a power of two, so paged_prefill's tiles hold 21
+    # query rows (R 63, rounded up to 64) and a 64-row chunk splits into
+    # 21 + 21 + 21 + 1 rows; on a generator of their own
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    for dt in (f32, bf16):
+        compare("paged_attention",
+                decode_case(torch, gen, 8, 24, 8, 64, 16, 52, dt,
+                            num_pages=1025), dt, 0, "G 3 (granite) B8 NB52")
+        split_case(8, 24, 8, 64, 16, 256, dt, "G 3 (granite) long context",
+                   torch.randint(3072, 4097, (8,), generator=gen,
+                                 device="cuda"))
+        compare("paged_prefill",
+                prefill_case(torch, gen, 2, 24, 8, 64, 16, 64, 52, dt,
+                             [0, 40], [64, 64], num_pages=1025), dt, 1,
+                "G 3 (granite) K2 S64 NB52 ctx 0 and 40 (across pages)")
+        compare("paged_prefill",
+                prefill_case(torch, gen, 2, 24, 8, 64, 16, 64, 52, dt,
+                             [700, 15], [37, 64], num_pages=1025), dt, 1,
+                "G 3 (granite) K2 S64 NB52 ctx 700 and 15, rows 37 and 64",
+                extra=lambda o: bool((o[0, 37:] == 0).all()))
     # paged_prefill at speculative verify shapes, through
     # ops.paged_verify (lanes of 1 + drafts rows, padded to 8): 4 lanes,
     # one ending on a page boundary, one crossing one, one idle (zeros),
@@ -486,7 +534,8 @@ def check_kernels(torch, ops_mod):
     gen.manual_seed(11)
     for dt in (f32, bf16):
         for s_, h, hkv, d in [(2, 16, 8, 64), (5, 16, 8, 64),
-                              (5, 32, 2, 128), (2, 32, 2, 128)]:
+                              (5, 32, 2, 128), (2, 32, 2, 128),
+                              (5, 24, 8, 64)]:
             ctx = [48 - s_, 63, 20, 0]          # page 16: 48 ends page 3
             chunk = [s_, s_, 0, max(s_ - 1, 1)]
             compare("paged_prefill",
@@ -537,8 +586,10 @@ def step_inputs(torch, cfg, dtype):
 
 def full_width_step(torch, cfg):
     """Phase 4: each float32 step function (``mixed_step``, then
-    ``prefill_step`` and ``decode_batch``) once with the kernels and once
-    with the plain versions, on the same weights and pool."""
+    ``prefill_step``, ``decode_batch`` and ``spec_decode_step`` over the
+    decode rows' tables, 7 lanes of 5 rows and an idle one) once with
+    the kernels and once with the plain versions, on the same weights
+    and pool."""
     from repro_torch.engine import paged_model as PM
     params, pool, a, page = step_inputs(torch, cfg, torch.float32)
     b, (kk, s) = a["dec_tokens"].shape[0], a["pre_tokens"].shape
@@ -553,6 +604,18 @@ def full_width_step(torch, cfg):
             a["dec_block_tables"], a["dec_active"], cfg=cfg, page_size=page,
             impl=impl)[0],
     }
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    spec_tokens = torch.randint(0, cfg.vocab_size, (b, SPEC_TOKENS + 1),
+                                generator=gen, device="cuda").to(torch.int32)
+    spec_len = torch.full((b,), SPEC_TOKENS + 1, dtype=torch.int32,
+                          device="cuda")
+    spec_len[-1] = 0
+    spec_ctx = a["dec_positions"].clamp(
+        max=a["dec_block_tables"].shape[1] * page - SPEC_TOKENS - 1)
+    steps["spec_decode_step"] = lambda p, impl: PM.spec_decode_step(
+        params, p, spec_tokens, spec_ctx, spec_len, a["dec_block_tables"],
+        cfg=cfg, page_size=page, impl=impl)[0].flatten(0, 1)
     for step, run in steps.items():
         outs = {}
         for impl in ("kernel", "ref"):
@@ -581,26 +644,32 @@ def full_width_step(torch, cfg):
 # ------------------------------------------------------------ serving
 def counted(torch, eng, pa, pp, drive):
     """Run ``drive()`` on ``eng`` with the paged kernels' counts set to 0
-    just before and read just after; returns the steps by mode, the
+    just before and read just after; returns the steps by mode (an async
+    loop's overlapped decode dispatch as ``async_decode``), the
     launches, and the launches expected: one a layer for each step that
     needs the kernel."""
-    modes = {"decode": 0, "prefill": 0, "mixed": 0, "idle": 0}
-    schedule = eng.sched.schedule
+    modes = {"decode": 0, "prefill": 0, "mixed": 0, "idle": 0,
+             "async_decode": 0}
+    exec_, dispatch = eng._exec, eng._dispatch_async
 
-    def recording_schedule(now):
-        out = schedule(now)
+    def recording_exec(out):
         modes[out.mode] += 1
-        return out
+        return exec_(out)
 
-    eng.sched.schedule = recording_schedule
+    def recording_dispatch(reqs):
+        modes["async_decode"] += 1
+        return dispatch(reqs)
+
+    eng._exec, eng._dispatch_async = recording_exec, recording_dispatch
     torch.cuda.synchronize()
     pa.launches = pp.launches = 0
     drive()
     torch.cuda.synchronize()
     launches = {"paged_attention": pa.launches, "paged_prefill": pp.launches}
-    eng.sched.schedule = schedule
+    eng._exec, eng._dispatch_async = exec_, dispatch
     n = eng.cfg.n_layers
-    want = {"paged_attention": n * (modes["decode"] + modes["mixed"]),
+    want = {"paged_attention": n * (modes["decode"] + modes["mixed"]
+                                    + modes["async_decode"]),
             "paged_prefill": n * (modes["prefill"] + modes["mixed"])}
     return modes, launches, want
 
@@ -610,12 +679,28 @@ def greedy(Request, SamplingParams, prompt, n, **kw):
                    sampling=SamplingParams(max_new_tokens=n), **kw)
 
 
-def serve_once(torch, cfg, prompts, pa, pp):
+def serve_once(torch, cfg, prompts, pa, pp, async_loop=False):
+    """One serve of ``prompts`` on a fresh engine.  With ``async_loop``
+    every async decode dispatch runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: a wait for the card
+    raises."""
     from repro_torch.engine import (EngineConfig, InferenceEngine, Request,
                                     SamplingParams)
-    ecfg = EngineConfig(**SERVE_ECFG)
+    ecfg = EngineConfig(**SERVE_ECFG, async_loop=async_loop)
     eng = InferenceEngine(cfg, ecfg, seed=0, device="cuda")
     reqs = [greedy(Request, SamplingParams, p, MAX_NEW) for p in prompts]
+    guarded = [0]
+    run_async = eng.runner.run_decode_async
+
+    def guarded_run_async(reqs, prev):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return run_async(reqs, prev)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            guarded[0] += 1
+
+    eng.runner.run_decode_async = guarded_run_async
 
     def drive():
         # the first request arrives alone (a lone prefill step), the
@@ -633,20 +718,29 @@ def serve_once(torch, cfg, prompts, pa, pp):
     ttft = [r.ttft for r in reqs]
     free, total = eng.alloc.num_free, eng.alloc.num_pages
     tokens = [list(r.output_tokens) for r in reqs]
+    device_wait_s = eng.metrics().device_wait_s
     del eng
+    gc.collect()            # the hooks above hold the engine in a cycle
     torch.cuda.empty_cache()
     return dict(tokens=tokens, modes=modes, launches=launches, want=want,
                 finished=finished, wall_s=wall, ttft=ttft,
-                free_pages=free, num_pages=total)
+                free_pages=free, num_pages=total, guarded=guarded[0],
+                device_wait_s=device_wait_s)
+
+
+def serve_prompts(cfg):
+    """The serve phase's 16 prompts of 128-768 random tokens."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    lens = rng.integers(PROMPT_RANGE[0], PROMPT_RANGE[1] + 1, N_REQUESTS)
+    return lens, [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+                  for n in lens]
 
 
 def serve(torch, cfg, pa, pp):
     """Phase 5: the full-width bf16 serve, twice."""
     import numpy as np
-    rng = np.random.default_rng(0)
-    lens = rng.integers(PROMPT_RANGE[0], PROMPT_RANGE[1] + 1, N_REQUESTS)
-    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
-               for n in lens]
+    lens, prompts = serve_prompts(cfg)
     runs = [serve_once(torch, cfg, prompts, pa, pp) for _ in range(2)]
     smi = nvidia_smi()
     for i, run in enumerate(runs):
@@ -669,7 +763,7 @@ def serve(torch, cfg, pa, pp):
              mean_ttft_s=float(np.mean(run["ttft"])), card=smi, ok=ok)
         if not ok:
             raise AssertionError(f"serve run {i + 1} failed its checks")
-    return runs[0]["launches"]
+    return runs[0]
 
 
 # ------------------------------------------------------------ launcher
@@ -1729,7 +1823,7 @@ def spec_serve(torch, cfg, pa, pp):
 
 
 def profile_spec(torch, cfg):
-    """Phase 11: one full-width bf16 ``decode_batch`` of 8 rows and one
+    """Phase 12: one full-width bf16 ``decode_batch`` of 8 rows and one
     ``spec_decode_step`` of the same 8 rows as lanes of 5 (4 drafts
     each), each ended by a synchronize."""
     from repro_torch.engine import paged_model as PM
@@ -1811,23 +1905,29 @@ def slot_step(torch, cfg, fp):
     del params, outs
 
 
-def slot_serve_once(torch, cfg, prompts, counters):
+def slot_serve_once(torch, cfg, prompts, counters, ecfg=SLOT_ECFG,
+                    max_new=SLOT_MAX_NEW):
     from repro_torch.engine import (Request, SamplingParams, SlotEngine,
                                     SlotEngineConfig)
     from repro_torch.engine.request import RequestState
-    eng = SlotEngine(cfg, SlotEngineConfig(**SLOT_ECFG), seed=0,
-                     device="cuda")
+    eng = SlotEngine(cfg, SlotEngineConfig(**ecfg), seed=0, device="cuda")
     prefills = 0
-    prefill_into_slot = eng._prefill_into_slot
+    finite = [True]
+    prefill_into_slot, sample = eng._prefill_into_slot, eng._sample
 
     def counting_prefill(req, slot):
         nonlocal prefills
         prefills += 1
         prefill_into_slot(req, slot)
 
+    def checking_sample(logits, reqs):
+        finite[0] &= bool(torch.isfinite(logits).all())
+        return sample(logits, reqs)
+
     eng._prefill_into_slot = counting_prefill
+    eng._sample = checking_sample
     reqs = [Request(prompt_tokens=list(p),
-                    sampling=SamplingParams(max_new_tokens=SLOT_MAX_NEW))
+                    sampling=SamplingParams(max_new_tokens=max_new))
             for p in prompts]
     torch.cuda.synchronize()
     for mod in counters.values():
@@ -1846,10 +1946,10 @@ def slot_serve_once(torch, cfg, prompts, counters):
     wall = time.perf_counter() - t0
     launches = {name: mod.launches for name, mod in counters.items()}
     finished = sum(r.state == RequestState.FINISHED
-                   and len(r.output_tokens) == SLOT_MAX_NEW for r in reqs)
+                   and len(r.output_tokens) == max_new for r in reqs)
     out = dict(tokens=[list(r.output_tokens) for r in reqs],
                launches=launches, prefills=prefills, steps=steps,
-               step_s=step_s,
+               step_s=step_s, finite_logits=finite[0],
                finished=finished, wall_s=wall, ttft=[r.ttft for r in reqs])
     del eng
     torch.cuda.empty_cache()
@@ -1871,7 +1971,7 @@ def slot_serve(torch, cfg, counters):
         gen_tokens = sum(len(t) for t in run["tokens"])
         ok = (run["finished"] == SLOT_REQUESTS
               and run["prefills"] == SLOT_REQUESTS
-              and run["launches"] == want
+              and run["launches"] == want and run["finite_logits"]
               and run["tokens"] == runs[0]["tokens"])
         emit("slot_serve", run=i + 1, model=cfg.name, engine="SlotEngine",
              config=SLOT_ECFG, requests=SLOT_REQUESTS,
@@ -1880,7 +1980,7 @@ def slot_serve(torch, cfg, counters):
              finished=run["finished"], prefills=run["prefills"],
              steps=run["steps"], wall_s_by_step=run["step_s"],
              launches=run["launches"],
-             expected_launches=want,
+             expected_launches=want, finite_logits=run["finite_logits"],
              same_tokens_as_run_1=run["tokens"] == runs[0]["tokens"],
              wall_s=run["wall_s"],
              output_tokens_per_s=gen_tokens / run["wall_s"],
@@ -1890,6 +1990,142 @@ def slot_serve(torch, cfg, counters):
         if not ok:
             raise AssertionError(f"slot serve run {i + 1} failed its checks")
     return runs[0]["launches"]
+
+
+# ------------------------------------------------------------ moe
+def moe_ffn_check(torch, cfg):
+    """``moe_ffn`` on the card against the same call on the CPU, float32,
+    at ``cfg``'s widths and capacity factor, at a mixed step's T (8
+    decode rows + 2 chunks of 64) and a decode step's (8 rows): the same
+    kept (token, expert) pairs bit for bit, as each call's own plan holds
+    them, outputs within the f32 tolerances; then its bf16 time on the
+    card beside the least time the card could take to read the expert
+    banks.  Expert 0's router column is raised by 0.15, as in
+    tests/test_torch_moe.py, so that it draws more than its capacity and
+    tens of pairs drop at T 136."""
+    from repro_torch.models import moe
+    from repro_torch.models.params import init_params
+    m, d = cfg.moe, cfg.d_model
+    params = init_params(moe.moe_specs(d, m), 13, torch.float32, "cuda")
+    params["router"][:, 0] += 0.15
+    cpu = {"router": params["router"].cpu(),
+           "experts": {k: w.cpu() for k, w in params["experts"].items()}}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    for t in (136, 8):
+        x = torch.randn(1, t, d, generator=gen, device="cuda")
+        cap = moe._capacity(t, m)
+        out, r, pl = moe.moe_ffn(params, m, x, cfg.act)
+        out_c, r_c, pl_c = moe.moe_ffn(cpu, m, x.cpu(), cfg.act)
+        keep, keep_c = pl.keep, pl_c.keep
+        aux, aux_c = moe.aux_losses(r, m), moe.aux_losses(r_c, m)
+        err = (out.cpu() - out_c).abs().max().item()
+        same_keep = bool(torch.equal(keep.cpu(), keep_c))
+        drops = int((~keep_c).sum())
+        ok = (same_keep and bool(torch.isfinite(out).all())
+              and torch.allclose(out.cpu(), out_c, atol=TOL["float32"][0],
+                                 rtol=TOL["float32"][1])
+              and all(abs(aux[k].item() - aux_c[k].item())
+                      <= 1e-5 * abs(aux_c[k].item()) for k in aux)
+              and (drops > 0 or t < 136))
+        xb = x.bfloat16()
+        pb = {"router": params["router"].bfloat16(),
+              "experts": {k: w.bfloat16()
+                          for k, w in params["experts"].items()}}
+        bank_bytes = sum(w.numel() * 2 for w in pb["experts"].values())
+        emit("moe_ffn", model=cfg.name, tokens=t, capacity=cap,
+             capacity_factor=m.capacity_factor, experts=m.num_experts,
+             top_k=m.top_k, dropped_pairs=drops, pairs=t * m.top_k,
+             same_keep_mask=same_keep, max_abs_err=err,
+             tol=TOL["float32"], aux={k: [aux[k].item(), aux_c[k].item()]
+                                      for k in aux},
+             bf16_ms=time_ms(torch, lambda: moe.moe_ffn(pb, m, xb,
+                                                        cfg.act)),
+             bank_read_bound_ms=bank_bytes / PEAK_BYTES_PER_S * 1e3,
+             card=nvidia_smi(), ok=ok)
+        if not ok:
+            raise AssertionError(f"moe_ffn at T {t}: card and CPU disagree")
+    del params, cpu
+
+
+def deepseek_cut(cfg):
+    """deepseek-v2 at its published widths, the depth cut to its first
+    two layer types: (MLA_DENSE, MLA_MOE)."""
+    from repro_torch.models.config import MLA_DENSE, MLA_MOE
+    return cfg.replace(name=cfg.name + "-depth2", n_layers=2,
+                       layer_pattern=(MLA_DENSE, MLA_MOE))
+
+
+def moe_phase(torch, granite, deepseek, counters):
+    """Phase 10: mixture-of-experts and MLA at full width.  ``moe_ffn``
+    on the card against the CPU; full-depth granite-moe-3b-a800m's four
+    paged step functions in float32, kernels against plain versions; the
+    granite bf16 serve twice and once with the async loop; deepseek-v2
+    cut to 2 layers through the slot engine in bf16, twice.  Returns the
+    granite serve's launches."""
+    import numpy as np
+    pa, pp = counters["paged_attention"], counters["paged_prefill"]
+    moe_ffn_check(torch, granite)
+    full_width_step(torch, granite)
+    first = serve(torch, granite, pa, pp)
+    run = serve_once(torch, granite, serve_prompts(granite)[1], pa, pp,
+                     async_loop=True)
+    gen_tokens = sum(len(t) for t in run["tokens"])
+    ok = (run["finished"] == N_REQUESTS
+          and run["free_pages"] == run["num_pages"]
+          and run["launches"] == run["want"]
+          and run["guarded"] == run["modes"]["async_decode"] > 0
+          and run["tokens"] == first["tokens"])
+    emit("serve", run="async", model=granite.name, requests=N_REQUESTS,
+         generated_tokens=gen_tokens, finished=run["finished"],
+         free_pages=run["free_pages"], num_pages=run["num_pages"],
+         steps=run["modes"], launches=run["launches"],
+         expected_launches=run["want"], guarded_dispatches=run["guarded"],
+         same_tokens_as_sync=run["tokens"] == first["tokens"],
+         wall_s=run["wall_s"], output_tokens_per_s=gen_tokens
+         / run["wall_s"], mean_ttft_s=float(np.mean(run["ttft"])),
+         device_wait_s=run["device_wait_s"], card=nvidia_smi(), ok=ok)
+    if not ok:
+        raise AssertionError("granite async serve failed its checks")
+    deepseek_serve(torch, deepseek, counters)
+    return first["launches"]
+
+
+def deepseek_serve(torch, cfg, counters):
+    """deepseek-v2 (2 layers at full width) through ``SlotEngine`` in
+    bf16: 4 greedy requests, prompts of 512-2000 tokens (the dense path
+    of ``attn_causal_plain``), 16 new tokens, twice on fresh engines.
+    MLA and the MoE FFN run no hand-written kernel: every count stays
+    0."""
+    import numpy as np
+    rng = np.random.default_rng(2)
+    lens = rng.integers(MLA_PROMPTS[0], MLA_PROMPTS[1] + 1, MLA_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in lens]
+    runs = [slot_serve_once(torch, cfg, prompts, counters, MLA_ECFG,
+                            MLA_MAX_NEW) for _ in range(2)]
+    for i, run in enumerate(runs):
+        gen_tokens = sum(len(t) for t in run["tokens"])
+        ok = (run["finished"] == MLA_REQUESTS and run["finite_logits"]
+              and run["launches"] == dict.fromkeys(counters, 0)
+              and run["tokens"] == runs[0]["tokens"])
+        emit("mla_slot_serve", run=i + 1, model=cfg.name,
+             depth=f"{cfg.n_layers} layers {list(cfg.layer_pattern)} of "
+             "60 (cut to fit one card; widths as published)",
+             engine="SlotEngine", config=MLA_ECFG, requests=MLA_REQUESTS,
+             prompt_tokens=int(lens.sum()), prompt_min=int(lens.min()),
+             prompt_max=int(lens.max()), generated_tokens=gen_tokens,
+             finished=run["finished"], prefills=run["prefills"],
+             steps=run["steps"], wall_s_by_step=run["step_s"],
+             launches=run["launches"], finite_logits=run["finite_logits"],
+             same_tokens_as_run_1=run["tokens"] == runs[0]["tokens"],
+             wall_s=run["wall_s"],
+             output_tokens_per_s=gen_tokens / run["wall_s"],
+             mean_ttft_s=float(np.mean(run["ttft"])), card=nvidia_smi(),
+             ok=ok)
+        if not ok:
+            raise AssertionError(f"deepseek-v2 slot serve run {i + 1} "
+                                 "failed its checks")
 
 
 # ------------------------------------------------------------ timing
@@ -1985,12 +2221,14 @@ def decode_row(torch, gen, launches, h, hkv, d, page, nb, lengths,
         f"{int(ln.min())}-{int(ln.max())} bf16", **extra)
 
 
-def timing(torch, cfg, launches):
-    """Phase 10: kernel, plain and library times and the bound, at the
-    serving shapes (bf16, H 16, Hkv 8, D 64, page 16, a pool of 1025
-    pages, block tables 52 wide, 8 decode rows, 2 chunks of 64); then
-    ``paged_attention`` at long contexts and at glm4-9b's group shape,
-    on lines of their own."""
+def timing(torch, cfg, launches, long_rows=True, **extra):
+    """Phase 11: kernel, plain and library times and the bound, at the
+    serving shapes (bf16, ``cfg``'s heads: H 16, Hkv 8, D 64 for
+    qwen3-0.6b, H 24, Hkv 8, D 64 for granite-moe-3b-a800m; page 16, a
+    pool of 1025 pages, block tables 52 wide, 8 decode rows, 2 chunks of
+    64); then, with ``long_rows``, ``paged_attention`` at long contexts
+    and at glm4-9b's group shape, on lines of their own.  ``extra``
+    fields go on each serving-shape line."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     dt, page, h, hkv, d, nb = torch.bfloat16, 16, cfg.n_heads, \
@@ -2009,7 +2247,7 @@ def timing(torch, cfg, launches):
     # decode: 8 rows with serving lengths (prompt 128..768 + 32 new)
     lengths = torch.randint(129, 800, (8,), generator=gen, device="cuda")
     lines.append(decode_row(torch, gen, launches, h, hkv, d, page, nb,
-                            lengths, 1025))
+                            lengths, 1025, **extra))
 
     # prefill: 2 chunks of 64 at serving contexts
     s = 64
@@ -2040,7 +2278,11 @@ def timing(torch, cfg, launches):
         time_ms(torch, lambda: F.scaled_dot_product_attention(
             qs, k, v, attn_mask=pmask, enable_gqa=True)),
         nbytes, flops, "bfloat16", device_ms=kernel_device_ms(
-            torch, lambda: ops.paged_prefill(*pargs), "paged_prefill")))
+            torch, lambda: ops.paged_prefill(*pargs), "paged_prefill"),
+        case=f"K2 S{s} H{h} Hkv{hkv} D{d} page{page} NB{nb} ctx 0 and 704 "
+        "bf16", **extra))
+    if not long_rows:
+        return lines
 
     # paged_attention where the split matters, on a generator of their
     # own: 8 rows at 3072-4096 tokens and one 4096-token row (block
@@ -2163,7 +2405,7 @@ def device_profile(torch, step, n):
 
 
 def profile_step(torch, cfg):
-    """Phase 11: one full-width bf16 paged mixed step (8 decode rows,
+    """Phase 12: one full-width bf16 paged mixed step (8 decode rows,
     chunks of 64 and 37), ended by a synchronize as the engine's
     sampling ends it; then the same step with a bank of 4 adapters, the
     rows on 4 distinct adapters and the base model."""
@@ -2198,8 +2440,47 @@ def profile_step(torch, cfg):
     del params, pool, bank
 
 
+def profile_moe(torch, cfg):
+    """Phase 12: one full-width bf16 paged mixed step of
+    granite-moe-3b-a800m (8 decode rows, chunks of 64 and 37) and one
+    ``decode_batch`` of its 8 rows, each ended by a synchronize, beside
+    the least time the card could take to read every weight once (the
+    capacity buffer runs every expert in every step)."""
+    from repro_torch.engine import paged_model as PM
+    params, pool, a, page = step_inputs(torch, cfg, torch.bfloat16)
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in iter_leaves(params))
+
+    def step():
+        PM.mixed_step(params, pool, **a, cfg=cfg, page_size=page)
+        torch.cuda.synchronize()
+
+    def decode():
+        PM.decode_batch(params, pool, a["dec_tokens"], a["dec_positions"],
+                        a["dec_block_tables"], a["dec_active"], cfg=cfg,
+                        page_size=page)
+        torch.cuda.synchronize()
+
+    bound = weight_bytes / PEAK_BYTES_PER_S * 1e3
+    emit("profile", step="mixed_step", model=cfg.name, dtype="bfloat16",
+         weight_bytes=weight_bytes, weight_read_bound_ms=bound,
+         **device_profile(torch, step, 10))
+    emit("profile", step="decode_batch", model=cfg.name, dtype="bfloat16",
+         decode_rows=a["dec_tokens"].shape[0], weight_bytes=weight_bytes,
+         weight_read_bound_ms=bound, **device_profile(torch, decode, 10))
+    del params, pool
+
+
+def iter_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from iter_leaves(v)
+    else:
+        yield tree
+
+
 def profile_slot(torch, cfg):
-    """Phase 11: the slot path at full width in bf16: one prefill of a
+    """Phase 12: the slot path at full width in bf16: one prefill of a
     2048-token prompt into a one-row cache, and one decode step of 4
     slots at positions 1200-3000 of a 4096-token cache, each ended by a
     synchronize as the engine's sampling ends it."""
@@ -2266,7 +2547,7 @@ def ptxas_summary(log):
 
 
 PHASES = ("kernels", "sampling", "step", "serve", "lora", "tiers", "spec",
-          "launch", "slot_step", "slot_serve", "timing", "profile")
+          "launch", "slot_step", "slot_serve", "moe", "timing", "profile")
 
 
 def main() -> int:
@@ -2327,11 +2608,12 @@ def main() -> int:
 
     cfg = get_config("qwen3-0.6b")
     gemma = get_config("gemma3-4b")
-    launches = slot_launches = dict.fromkeys(KERNEL_INFO, 0)
+    granite = get_config("granite-moe-3b-a800m")
+    launches = slot_launches = moe_launches = dict.fromkeys(KERNEL_INFO, 0)
     if "step" in only:
         full_width_step(torch, cfg)
     if "serve" in only:
-        launches = serve(torch, cfg, pa, pp)
+        launches = serve(torch, cfg, pa, pp)["launches"]
     if "lora" in only:
         t0 = time.perf_counter()
         lora_step(torch, cfg)
@@ -2356,13 +2638,31 @@ def main() -> int:
     if "slot_serve" in only:
         slot_launches = slot_serve(torch, gemma, {
             "flash_prefill": fp, "paged_attention": pa, "paged_prefill": pp})
+    if "moe" in only:
+        t0 = time.perf_counter()
+        moe_launches = moe_phase(torch, granite, deepseek_cut(
+            get_config("deepseek-v2-236b")), {
+                "flash_prefill": fp, "paged_attention": pa,
+                "paged_prefill": pp})
+        emit("moe_done", seconds=time.perf_counter() - t0)
     lines = []
     if "timing" in only:
         lines = timing(torch, cfg, launches) + flash_timing(torch, gemma,
                                                             slot_launches)
+        timing(torch, granite, moe_launches, long_rows=False,
+               model=granite.name)
+        # each path's launches: the serves of qwen3-0.6b (the kernels'
+        # own ``launches``), granite-moe-3b-a800m and gemma3-4b
+        for line in lines:
+            line["launches_by_path"] = {
+                f"{cfg.name} serve": launches.get(line["name"], 0),
+                f"{granite.name} serve": moe_launches.get(line["name"], 0),
+                f"{gemma.name} slot serve": slot_launches.get(line["name"],
+                                                              0)}
     if "profile" in only:
         profile_step(torch, cfg)
         profile_spec(torch, cfg)
+        profile_moe(torch, granite)
         profile_slot(torch, gemma)
 
     if only == set(PHASES):

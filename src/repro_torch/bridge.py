@@ -98,7 +98,8 @@ def caches_from_numpy(caches: Sequence[Mapping], cfg: ModelConfig,
                       device=None) -> List[dict]:
     """The JAX package's slot caches (one dict per layer run, leaves as
     numpy arrays) -> the port's, on ``device`` (the card unless one is
-    named).  K/V take ``dtype`` if given; ring positions stay int32.
+    named).  K/V and MLA latents take ``dtype`` if given; ring positions
+    stay int32.
     Raises on a missing or extra run or field, or a shape mismatch with
     ``models.model.cache_struct(cfg, batch, cache_len)``."""
     device = resolve_device(device)

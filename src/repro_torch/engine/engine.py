@@ -45,7 +45,8 @@ queued.  Any other step resolves first.  Tokens are the sync loop's;
 The engine runs on the card unless the caller names another device
 (``device="cpu"`` for tests); on a CUDA device only ``impl="kernel"``
 is accepted, so the plain attention never sits on the card's serving
-path.  Only DENSE layer runs are ported: a MoE config is refused.
+path.  It serves one run of DENSE or MOE layers (granite-moe-3b-a800m);
+the slot engine takes the rest.
 """
 from __future__ import annotations
 
@@ -68,7 +69,7 @@ from repro_torch.engine.runner import ModelRunner
 from repro_torch.engine.scheduler import (EngineMetrics, PENDING_TOKEN,
                                           ScheduleOutput, Scheduler,
                                           SchedulerConfig)
-from repro_torch.models.config import DENSE, ModelConfig
+from repro_torch.models.config import ModelConfig
 
 
 @dataclass
@@ -153,9 +154,6 @@ class InferenceEngine:
             raise ValueError(
                 f"{cfg.name}: paged engine requires a uniform dense/moe "
                 "attention pattern; use the slot engine for hybrid/SSM")
-        if cfg.layer_runs[0][0] != DENSE:
-            raise NotImplementedError(
-                f"{cfg.name}: only DENSE layers are ported so far")
         validate_wire_dtype(ecfg.wire_dtype)
         self.device = resolve_device(device)
         if self.device.type == "cuda" and ecfg.impl != "kernel":

@@ -1,5 +1,5 @@
 """Paged-KV forward passes for serving, the PyTorch counterpart of
-``repro/engine/paged_model.py`` (DENSE configs).
+``repro/engine/paged_model.py`` (DENSE and MOE configs).
 
 Five entry points over the stacked layer parameters of a single-run
 config:
@@ -41,7 +41,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
-from repro_torch.models import layers
+from repro_torch.models import layers, moe
 from repro_torch.models import model as M
 from repro_torch.models.config import DENSE, MOE, ModelConfig
 from repro_torch.models.params import Spec, init_params
@@ -167,14 +167,21 @@ def _qkv_lora_groups(p_attn: dict, cfg: ModelConfig, x: torch.Tensor,
 
 def _layer_params(params, cfg: ModelConfig) -> List[dict]:
     """Per-layer views of the stacked ``run_0`` leaves."""
-    if cfg.layer_runs[0][0] != DENSE:
-        raise NotImplementedError(
-            f"{cfg.name}: only DENSE layers are ported to the paged path")
+    if not pageable(cfg):
+        raise ValueError(f"{cfg.name}: the paged path takes one run of "
+                         "DENSE or MOE layers")
     return [M.layer_view(params["run_0"], i) for i in range(cfg.n_layers)]
 
 
 def _ffn(p_l: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The FFN sublayer over the whole token batch ``x``, padding rows
+    included: the MoE capacity is the reference's for that batch.  The
+    MoE auxiliary losses are not computed: the reference's steps drop
+    them."""
     h2 = layers.rms_norm(x, p_l["ln2"], cfg.norm_eps)
+    if "moe" in p_l:
+        f, _, _ = moe.moe_ffn(p_l["moe"], cfg.moe, h2, cfg.act)
+        return x + f
     return x + layers.mlp(p_l["mlp"], h2, cfg.act)
 
 

@@ -1,22 +1,23 @@
 """Slot-based engine for the models the paged engine does not take
 (sliding-window patterns such as gemma3's 5:1 local:global, codebook
-streams such as MusicGen), the PyTorch counterpart of
-``repro/engine/slot_engine.py``.
+streams such as MusicGen, MLA layers such as deepseek-v2's), the
+PyTorch counterpart of ``repro/engine/slot_engine.py``.
 
 Every slot owns one row of contiguous per-slot caches
 (``models.model.init_cache``).  A request is prefilled alone into a
 fresh one-row cache, which is then copied over its slot's whole row in
-place (ring positions included); the active slots then decode together,
-one token per step, while empty slots carry token 0 at position 0 as in
-the JAX engine.  The queue, admission and finish bookkeeping is the
-copied :class:`repro_torch.engine.scheduler.SchedulerCore`, so the
+place (every field: K/V, ring positions, MLA latents); the active
+slots then decode together, one token per step, while empty slots carry
+token 0 at position 0 as in the JAX engine.  The queue, admission and
+finish bookkeeping is the copied
+:class:`repro_torch.engine.scheduler.SchedulerCore`, so the
 handle contract (``submit``/``step``/``metrics``/``match_prefix_len``)
 is the paged engine's.
 
 Sampling is the JAX slot engine's: one split of the engine's key stream
 (``PRNGKey(seed + 1)``) per sampled step, no nucleus filter, and greedy
 per codebook for codebook models.  The SSM and hybrid layer types are
-not ported yet, so xLSTM, Hymba and MLA configs are refused.
+not ported yet, so xLSTM and Hymba configs are refused.
 """
 from __future__ import annotations
 

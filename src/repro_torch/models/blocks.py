@@ -2,8 +2,11 @@
 ``repro/models/blocks.py``: parameter specs, cache shapes and the residual
 block forward.
 
-Ported so far: DENSE and SWA (sliding-window) layers.  Every other layer
-type raises ``NotImplementedError`` naming its ROADMAP item.
+Ported: DENSE and SWA (sliding-window) layers, MOE (GQA attention and
+the mixture-of-experts FFN), and MLA_DENSE and MLA_MOE (multi-head
+latent attention, whose caches hold the latents ``c_kv`` and
+``k_rope``).  The Hymba and xLSTM types raise ``NotImplementedError``
+naming their ROADMAP item.
 
 ``apply_layer`` runs in two modes:
   * mode="full":   x (B, S, d), positions (B, S) — prefill; fills
@@ -29,12 +32,9 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import config as C
-from repro_torch.models import layers
+from repro_torch.models import layers, mla, moe
 
 UNPORTED = {
-    C.MOE: "B7 (MoE)",
-    C.MLA_DENSE: "C1b (MLA)",
-    C.MLA_MOE: "C1b (MLA) and B7 (MoE)",
     C.HYMBA: "C1b (Hymba, models/ssm.py)",
     C.HYMBA_GLOBAL: "C1b (Hymba, models/ssm.py)",
     C.MLSTM: "C1b (xLSTM, models/ssm.py)",
@@ -47,7 +47,7 @@ def _check_ported(cfg: C.ModelConfig, ltype: str) -> None:
         raise NotImplementedError(
             f"{cfg.name}: layer type {ltype!r} is not ported yet (ROADMAP "
             f"{UNPORTED[ltype]})")
-    if ltype not in (C.DENSE, C.SWA):
+    if ltype not in (C.DENSE, C.SWA, C.MOE, C.MLA_DENSE, C.MLA_MOE):
         raise ValueError(f"unknown layer type {ltype}")
 
 
@@ -55,8 +55,18 @@ def _check_ported(cfg: C.ModelConfig, ltype: str) -> None:
 def layer_specs(cfg: C.ModelConfig, ltype: str) -> dict:
     _check_ported(cfg, ltype)
     d = cfg.d_model
-    return {"ln1": layers.norm_spec(d), "attn": layers.attn_specs(cfg),
-            "ln2": layers.norm_spec(d), "mlp": layers.mlp_specs(d, cfg.d_ff)}
+    ln = layers.norm_spec(d)
+    mixer = ({"mla": mla.mla_specs(cfg)} if ltype in C.MLA_LAYER_TYPES
+             else {"attn": layers.attn_specs(cfg)})
+    if ltype in (C.MOE, C.MLA_MOE):
+        ffn = {"moe": moe.moe_specs(d, cfg.moe)}
+    elif ltype == C.MLA_DENSE:
+        # deepseek-v2 layer 0: dense FFN sized like shared+routed width
+        f = cfg.d_ff if cfg.d_ff else cfg.moe.d_expert * 4
+        ffn = {"mlp": layers.mlp_specs(d, f)}
+    else:
+        ffn = {"mlp": layers.mlp_specs(d, cfg.d_ff)}
+    return {"ln1": ln, **mixer, "ln2": ln, **ffn}
 
 
 # ------------------------------------------------------------------ caches
@@ -78,8 +88,14 @@ def cache_shape(cfg: C.ModelConfig, ltype: str, batch: int,
                 cache_len: int) -> Dict[str, Tuple[tuple, tuple]]:
     """dict of cache field -> ((shape), (logical axes))."""
     _check_ported(cfg, ltype)
-    if ltype == C.DENSE:
+    if ltype in (C.DENSE, C.MOE):
         return _kv_cache(cfg, batch, cache_len)
+    if ltype in C.MLA_LAYER_TYPES:
+        m = cfg.mla
+        return {"c_kv": ((batch, cache_len, m.kv_lora_rank),
+                         ("batch", "cache_seq", None)),
+                "k_rope": ((batch, cache_len, m.qk_rope_head_dim),
+                           ("batch", "cache_seq", None))}
     return _window_cache(cfg, batch)
 
 
@@ -148,19 +164,33 @@ def _attn_decode(p, cfg, x, positions, cache, window: int):
 # ------------------------------------------------------------------ apply
 def apply_layer(p: dict, cfg: C.ModelConfig, ltype: str, x: torch.Tensor,
                 positions: torch.Tensor, cache: Optional[dict], mode: str,
-                impl: str = "kernel") -> Tuple[torch.Tensor, Optional[dict]]:
-    """Residual block.  Returns (x, cache); ``impl`` picks the kernel or
-    the plain version of the full-mode attention."""
+                impl: str = "kernel"
+                ) -> Tuple[torch.Tensor, Optional[dict],
+                           Optional[moe.Routing]]:
+    """Residual block.  Returns (x, cache, routing): the MoE FFN's
+    routing, from which ``moe.aux_losses`` computes the reference's
+    auxiliary losses, None for the other layers.  ``impl`` picks the
+    kernel or the plain version of the full-mode GQA attention (MLA has
+    no kernel)."""
     _check_ported(cfg, ltype)
-    window = cfg.sliding_window if ltype == C.SWA else 0
-    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
-    if mode == "full":
-        a, cache = _attn_full(p["attn"], cfg, h, positions, cache, window,
-                              impl)
-    elif mode == "decode":
-        a, cache = _attn_decode(p["attn"], cfg, h, positions, cache, window)
-    else:
+    if mode not in ("full", "decode"):
         raise ValueError(f"mode must be 'full' or 'decode', got {mode!r}")
+    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+    if ltype in C.MLA_LAYER_TYPES:
+        mix = mla.mla_full if mode == "full" else mla.mla_decode
+        a, cache = mix(p["mla"], cfg, h, positions, cache,
+                       absorb=cfg.mla_absorb)
+    else:
+        window = cfg.sliding_window if ltype == C.SWA else 0
+        if mode == "full":
+            a, cache = _attn_full(p["attn"], cfg, h, positions, cache,
+                                  window, impl)
+        else:
+            a, cache = _attn_decode(p["attn"], cfg, h, positions, cache,
+                                    window)
     x = x + a
     h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + layers.mlp(p["mlp"], h, cfg.act), cache
+    if "moe" in p:
+        f, routing, _ = moe.moe_ffn(p["moe"], cfg.moe, h, cfg.act)
+        return x + f, cache, routing
+    return x + layers.mlp(p["mlp"], h, cfg.act), cache, None

@@ -1,8 +1,8 @@
 """Shared building blocks, the PyTorch counterpart of
 ``repro/models/layers.py``: norms, RoPE, masks, GQA attention (dense,
-and causal/windowed through the ``flash_prefill`` kernel), projections
-and the gated MLP.  ``_blockwise`` and ``mlstm_parallel``, which serve
-training, the dry-run and xLSTM, are not ported yet.
+causal/windowed through the ``flash_prefill`` kernel, and the plain
+causal path with ``_blockwise`` that MLA calls), projections and the
+gated MLP.  ``mlstm_parallel`` (xLSTM) is not ported yet.
 
 Plain functions on tensors; parameters arrive as dicts built from
 ``repro_torch.models.params.Spec`` trees in ``repro``'s layouts
@@ -122,18 +122,81 @@ def attn_causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the ``flash_prefill`` kernel for CUDA tensors, its plain version for
     CPU tensors (``impl="ref"``: the plain version on any device).
 
-    The kernel takes the default scale and no logit softcap; no config
-    served by the port sets either (MLA, which passes a scale, is not
-    ported yet), so both are refused rather than computed elsewhere.
+    The kernel takes the default scale and no logit softcap, so both are
+    refused here rather than computed elsewhere; MLA, which passes a
+    scale, calls ``attn_causal_plain`` by name.
     """
     if softcap or scale is not None:
         raise NotImplementedError(
-            "attn_causal with a logit softcap or an explicit scale is not "
-            "ported yet (ROADMAP C1b)")
+            "the flash_prefill kernel takes no logit softcap and no "
+            "explicit scale (ROADMAP Queue 2, K3); attn_causal_plain "
+            "takes an explicit scale")
     lengths = torch.full((q.shape[0],), k.shape[1], dtype=torch.int32,
                          device=q.device)
     return kops.flash_attention(q, k, v, lengths, window=window,
                                 q_offset=q_offset, impl=impl)
+
+
+def attn_causal_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      *, scale: Optional[float] = None, block_q: int = 512,
+                      block_k: int = 512,
+                      force_blockwise: bool = False) -> torch.Tensor:
+    """The JAX package's ``attn_causal`` with an explicit scale and no
+    window, softcap or offset, in plain torch: the dense masked
+    ``attention`` when Sq*Sk <= 2048**2, else ``_blockwise``, an online
+    softmax over (block_q, block_k) tiles that never holds the (Sq, Sk)
+    scores.  Q/K and V may differ in width (MLA: 192 and 128).  No
+    kernel is involved, on any device."""
+    sq, sk = q.shape[1], k.shape[1]
+    if sq * sk <= 2048 * 2048 and not force_blockwise:
+        mask = causal_mask(sq, sk, device=q.device)[None]
+        return attention(q, k, v, mask, scale=scale)
+    return _blockwise(q, k, v, scale=scale, block_q=block_q,
+                      block_k=block_k)
+
+
+def _blockwise(q, k, v, *, scale, block_q=512, block_k=512):
+    """``repro.models.layers._blockwise`` with the softmax norm: every
+    (q block, k block) pair is visited in order, as the reference's
+    scans do, with the running max, sum and accumulator in float32."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    g = h // hkv
+    if scale is None:
+        scale = d ** -0.5
+    bq, bk = min(block_q, sq), min(block_k, sk)
+    sq_p, sk_p = -(-sq // bq) * bq, -(-sk // bk) * bk
+    q = F.pad(q, (0, 0, 0, 0, 0, sq_p - sq))
+    k = F.pad(k, (0, 0, 0, 0, 0, sk_p - sk))
+    v = F.pad(v, (0, 0, 0, 0, 0, sk_p - sk))
+    dev = q.device
+    outs = []
+    for qi in range(sq_p // bq):
+        q32 = q[:, qi * bq:(qi + 1) * bq].float().reshape(
+            b, bq, hkv, g, d) * scale
+        qpos = qi * bq + torch.arange(bq, device=dev)
+        acc = torch.zeros(b, hkv, g, bq, dv, device=dev)
+        m = torch.full((b, hkv, g, bq), NEG_INF, device=dev)
+        den = torch.zeros(b, hkv, g, bq, device=dev)
+        for ki in range(sk_p // bk):
+            k32 = k[:, ki * bk:(ki + 1) * bk].float()
+            v32 = v[:, ki * bk:(ki + 1) * bk].float()
+            logits = torch.einsum("bqhgd,bkhd->bhgqk", q32, k32)
+            kpos = ki * bk + torch.arange(bk, device=dev)
+            mask = (kpos[None, :] <= qpos[:, None]) & (kpos[None, :] < sk)
+            score = logits.masked_fill(~mask, NEG_INF)
+            m_new = torch.maximum(m, score.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(score - m_new[..., None]).masked_fill(~mask, 0.0)
+            den = den * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhgqk,bkhd->bhgqd", p, v32)
+            m = m_new
+        outs.append(acc / torch.clamp(den, min=1e-30)[..., None])
+    out = torch.stack(outs)                      # (nq, b, hkv, g, bq, dv)
+    out = out.permute(1, 0, 4, 2, 3, 5).reshape(b, sq_p, h, dv)
+    return out[:, :sq].to(q.dtype)
 
 
 def attn_specs(cfg) -> dict:
@@ -191,8 +254,12 @@ def mlp_specs(d: int, f: int) -> dict:
     }
 
 
+def activation(act: str, x: torch.Tensor) -> torch.Tensor:
+    """silu, or gelu with the tanh approximation (jax.nn.gelu's
+    default)."""
+    return F.silu(x) if act == "silu" else F.gelu(x, approximate="tanh")
+
+
 def mlp(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    gate = x @ p["w_gate"]
-    # jax.nn.gelu defaults to the tanh approximation
-    g = F.silu(gate) if act == "silu" else F.gelu(gate, approximate="tanh")
+    g = activation(act, x @ p["w_gate"])
     return (g * (x @ p["w_in"])) @ p["w_out"]

@@ -1,6 +1,6 @@
 """Decoder-only model over run-grouped layers, the PyTorch counterpart of
-``repro/models/model.py`` for the layer types ported so far (DENSE and
-SWA, see ``blocks``), codebook streams included.
+``repro/models/model.py`` for the layer types ported so far (DENSE, SWA,
+MOE, MLA_DENSE and MLA_MOE, see ``blocks``), codebook streams included.
 
 The parameter tree keeps ``repro``'s layout — ``embedding`` ((V, d), or
 (K, V, d) for K codebooks), one stacked ``run_<i>`` per run of identical
@@ -24,10 +24,10 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import blocks, layers
+from repro_torch.models import blocks, layers, moe
 from repro_torch.models import config as C
-from repro_torch.models.params import (Spec, init_params, map_specs,
-                                       stack_specs)
+from repro_torch.models.params import (Spec, init_params,
+                                       map_specs_with_path, stack_specs)
 
 
 # ===================================================================== specs
@@ -59,15 +59,18 @@ def init(cfg: C.ModelConfig, seed: int = 0, dtype=torch.float32,
 
 
 def count_params(cfg: C.ModelConfig, active_only: bool = False) -> int:
-    """Parameter count from the spec tree (no MoE is ported, so active ==
-    total)."""
+    """Total (or MoE-active: expert banks scaled by top_k / num_experts)
+    parameter count, from the spec tree."""
     total = 0
 
-    def add(s: Spec):
+    def visit(path: str, s: Spec):
         nonlocal total
-        total += math.prod(s.shape)
+        n = math.prod(s.shape)
+        if active_only and cfg.moe is not None and "/experts/" in path:
+            n = int(n * cfg.moe.top_k / cfg.moe.num_experts)
+        total += n
 
-    map_specs(add, model_specs(cfg))
+    map_specs_with_path(visit, model_specs(cfg))
     return total
 
 
@@ -129,16 +132,11 @@ def layer_view(tree, i: int):
     return tree[i]
 
 
-def forward(params, cfg: C.ModelConfig, tokens: torch.Tensor,
-            positions: Optional[torch.Tensor] = None,
-            caches: Optional[List[dict]] = None, mode: str = "full",
-            impl: str = "kernel"):
-    """Returns (hidden (B, S, d), caches).
-
-    mode="full": tokens (B, S) (or (B, S, K)), positions default to
-    0..S-1.  mode="decode": tokens (B,) (or (B, K)), positions (B,).
-    ``impl`` picks the kernel or the plain version of the full-mode
-    attention."""
+def _trunk(params, cfg: C.ModelConfig, tokens: torch.Tensor,
+           positions: Optional[torch.Tensor], caches: Optional[List[dict]],
+           mode: str, impl: str):
+    """The embedding, every layer and the final norm.  Returns (hidden,
+    the MoE layers' routings)."""
     if mode == "full":
         b, s = tokens.shape[:2]
         if positions is None:
@@ -147,29 +145,50 @@ def forward(params, cfg: C.ModelConfig, tokens: torch.Tensor,
     else:
         x = embed(params, cfg, tokens[:, None] if tokens.dim() == 1
                   else tokens[:, None, :])
+    routings = []
     for i, (ltype, n) in enumerate(cfg.layer_runs):
         run_p = params[f"run_{i}"]
         run_c = caches[i] if caches is not None else None
         for j in range(n):
             c_l = layer_view(run_c, j) if run_c is not None else None
-            x, _ = blocks.apply_layer(layer_view(run_p, j), cfg, ltype, x,
-                                      positions, c_l, mode, impl=impl)
-    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x, caches
+            x, _, r = blocks.apply_layer(layer_view(run_p, j), cfg, ltype,
+                                         x, positions, c_l, mode, impl=impl)
+            if r is not None:
+                routings.append(r)
+    return layers.rms_norm(x, params["final_norm"], cfg.norm_eps), routings
+
+
+def forward(params, cfg: C.ModelConfig, tokens: torch.Tensor,
+            positions: Optional[torch.Tensor] = None,
+            caches: Optional[List[dict]] = None, mode: str = "full",
+            impl: str = "kernel"):
+    """Returns (hidden (B, S, d), caches, aux): aux sums each MoE
+    auxiliary loss over the layers, one 0-d tensor a key (empty without
+    MoE layers).  ``prefill`` and ``decode_step`` skip the aux.
+
+    mode="full": tokens (B, S) (or (B, S, K)), positions default to
+    0..S-1.  mode="decode": tokens (B,) (or (B, K)), positions (B,).
+    ``impl`` picks the kernel or the plain version of the full-mode
+    attention."""
+    x, routings = _trunk(params, cfg, tokens, positions, caches, mode, impl)
+    aux_total: Dict[str, torch.Tensor] = {}
+    for r in routings:
+        for k, v in moe.aux_losses(r, cfg.moe).items():
+            aux_total[k] = aux_total[k] + v if k in aux_total else v
+    return x, caches, aux_total
 
 
 # ===================================================================== steps
 def prefill(params, cfg: C.ModelConfig, tokens: torch.Tensor,
             caches: List[dict], impl: str = "kernel"):
     """Full prefill; returns (last-token logits (B, ...), caches)."""
-    x, caches = forward(params, cfg, tokens, caches=caches, mode="full",
-                        impl=impl)
+    x, _ = _trunk(params, cfg, tokens, None, caches, "full", impl)
     return unembed(params, cfg, x[:, -1:])[:, 0], caches
 
 
 def decode_step(params, cfg: C.ModelConfig, caches: List[dict],
                 tokens: torch.Tensor, positions: torch.Tensor):
     """One decode step.  tokens: (B,) or (B, K); positions: (B,)."""
-    x, caches = forward(params, cfg, tokens, positions=positions,
-                        caches=caches, mode="decode")
+    x, _ = _trunk(params, cfg, tokens, positions, caches, "decode",
+                  "kernel")
     return unembed(params, cfg, x)[:, 0], caches

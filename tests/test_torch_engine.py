@@ -109,15 +109,6 @@ def test_allocating_entry_points_default_to_the_card(weights, entry):
     assert leaves and all(t.device.type == "cpu" for t in leaves)
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m"])
-def test_unported_features_are_refused(arch):
-    """MoE layers are not ported to the paged path yet (ROADMAP B7): the
-    engine refuses such a config at construction."""
-    cfg = get_reduced_config(arch)
-    with pytest.raises(NotImplementedError):
-        InferenceEngine(cfg, EngineConfig(**ECFG), device="cpu")
-
-
 @pytest.mark.parametrize("field,value,attr", [
     ("host_cache_gb", 1.0, "host_pool"), ("ssd_cache_gb", 1.0, "ssd_pool"),
     ("role", "prefill", None), ("spec_tokens", 2, None),

@@ -34,7 +34,6 @@ from repro_torch.engine import (EngineConfig, InferenceEngine,  # noqa: E402
 from repro_torch.engine import paged_model as PM  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
-from repro_torch.models.config import MOE  # noqa: E402
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 ECFG = dict(page_size=8, num_pages=64, max_batch=4, max_pages_per_seq=16,
@@ -139,21 +138,6 @@ def test_spec_step_matches_jax(setup, step, lora):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     # the idle lane wrote nothing: the scratch page is untouched
     assert np.array_equal(out[-1].k[:, NUM_PAGES].numpy(), k0[:, NUM_PAGES])
-
-
-def test_spec_step_moe_is_refused(setup):
-    """A MoE layer stays refused on the spec path, as on the rest of the
-    paged path."""
-    cfg = setup.cfg.replace(layer_pattern=(MOE,) * setup.cfg.n_layers)
-    k0 = np.zeros((cfg.n_layers, 2, PAGE, cfg.n_kv_heads, cfg.head_dim),
-                  np.float32)
-    one = torch.ones(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="DENSE"):
-        PM.spec_decode_step(setup.params,
-                            bridge.pool_from_numpy(k0, k0, device="cpu"),
-                            torch.zeros((1, 2), dtype=torch.int32), one, one,
-                            torch.zeros((1, 1), dtype=torch.int32), cfg=cfg,
-                            page_size=PAGE)
 
 
 # -------------------------------------------------------------- engines
