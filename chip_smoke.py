@@ -107,6 +107,29 @@ Phases, each printing one JSON line:
             (MLA_DENSE, MLA_MOE) through ``SlotEngine`` in bf16, 4
             greedy requests (prompts 512-2000, 16 new tokens) twice:
             the same tokens, finite logits, no kernel launched;
+   train    the port's trainer (``repro_torch.training``): (a) one
+            ``make_train_step`` and its gradients of reduced qwen3-0.6b
+            and reduced granite-moe-3b-a800m (aux losses) on 4 x 1024
+            tokens, card against CPU in float32 at "highest" (loss 1e-5
+            relative, each gradient leaf within 1e-4 of its max and
+            nonzero somewhere); (b) full-width qwen3-0.6b in float32,
+            batch 8 x 1024 (the chunked, checkpointed cross-entropy),
+            3 steps with remat: finite losses and grad norms, the first
+            loss near ln V, a ``grad_accum=2`` step equal to the
+            ``grad_accum=1`` step on the same batch (1e-4); (c) the same
+            with bf16 params and float32 moments; walls, tokens/s,
+            6*N*tokens/s over the peak, peak memory, a step's device time
+            by kind (torch.profiler); (d) remat on against
+            off at the 100M config of ``examples/
+            torch_train_dense_100m.py`` (1e-5), both peak memories; (e)
+            that example, 300 steps: the loss falls by more than 0.3 and
+            the restored checkpoint equals the final state; (f) the
+            blockwise attention of sequences over 2048 tokens: reduced
+            qwen3-0.6b's gradients on one 4096-token sequence, card
+            against CPU as in (a), and at qwen3-0.6b's heads the
+            attention's forward and backward against the dense path
+            (1e-4), each one's peak memory and wall.  No hand-written
+            kernel launches in the whole phase;
 11. timing  each kernel, its plain version, the library call and the
             least time the card could take, at the serving shapes (also
             at granite's G 3 for the paged kernels), and
@@ -223,6 +246,18 @@ JAX_SAMPLES = {
     "151936/0.9": [9225, 7656, 144488, 30491, 141411, 140739, 104416,
                    78432],
     "151936/1.0": [9225, 0, 144488, 0, 141411, 140739, 104416, 78432]}
+# the train phase: full-width qwen3-0.6b steps of 8 x 1024 tokens (the
+# chunked, checkpointed cross-entropy: 2 chunks of 512), the reduced
+# card-vs-CPU steps at the same length, the 100M example's 300 steps.
+# Card against CPU in float32 at "highest": loss within 1e-5 relative,
+# each gradient leaf within 1e-4 of its leaf's max |g|; grad_accum 2
+# against 1 within 1e-4 relative; remat on against off within 1e-5.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, EXAMPLE_STEPS = 8, 1024, 3, 300
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=100)
+TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL, TRAIN_ACCUM_RTOL = 1e-5, 1e-4, 1e-4
+REMAT_RTOL = 1e-5
+# (f) the blockwise attention (Sq*Sk > 2048**2): one sequence this long
+BLOCKWISE_SEQ = 4096
 # full-width f32 step: kernel logits vs plain logits, relative to the
 # logits' scale.  The two differ only in the order of the attention's
 # float32 sums (~1e-6 relative per call); 28 layers of residual updates
@@ -1932,6 +1967,7 @@ def slot_serve_once(torch, cfg, prompts, counters, ecfg=SLOT_ECFG,
     torch.cuda.synchronize()
     for mod in counters.values():
         mod.launches = 0
+    counters["flash_prefill"].launches_by_window.clear()
     t0 = time.perf_counter()
     for r in reqs:
         eng.submit(r)
@@ -1945,10 +1981,12 @@ def slot_serve_once(torch, cfg, prompts, counters, ecfg=SLOT_ECFG,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: mod.launches for name, mod in counters.items()}
+    by_window = dict(counters["flash_prefill"].launches_by_window)
     finished = sum(r.state == RequestState.FINISHED
                    and len(r.output_tokens) == max_new for r in reqs)
     out = dict(tokens=[list(r.output_tokens) for r in reqs],
-               launches=launches, prefills=prefills, steps=steps,
+               launches=launches, flash_by_window=by_window,
+               prefills=prefills, steps=steps,
                step_s=step_s, finite_logits=finite[0],
                finished=finished, wall_s=wall, ttft=[r.ttft for r in reqs])
     del eng
@@ -1972,6 +2010,8 @@ def slot_serve(torch, cfg, counters):
         ok = (run["finished"] == SLOT_REQUESTS
               and run["prefills"] == SLOT_REQUESTS
               and run["launches"] == want and run["finite_logits"]
+              and sum(run["flash_by_window"].values())
+              == run["launches"]["flash_prefill"]
               and run["tokens"] == runs[0]["tokens"])
         emit("slot_serve", run=i + 1, model=cfg.name, engine="SlotEngine",
              config=SLOT_ECFG, requests=SLOT_REQUESTS,
@@ -1980,6 +2020,7 @@ def slot_serve(torch, cfg, counters):
              finished=run["finished"], prefills=run["prefills"],
              steps=run["steps"], wall_s_by_step=run["step_s"],
              launches=run["launches"],
+             flash_prefill_launches_by_window=run["flash_by_window"],
              expected_launches=want, finite_logits=run["finite_logits"],
              same_tokens_as_run_1=run["tokens"] == runs[0]["tokens"],
              wall_s=run["wall_s"],
@@ -1989,7 +2030,7 @@ def slot_serve(torch, cfg, counters):
              mean_ttft_s=float(np.mean(run["ttft"])), card=smi, ok=ok)
         if not ok:
             raise AssertionError(f"slot serve run {i + 1} failed its checks")
-    return runs[0]["launches"]
+    return runs[0]["launches"], runs[0]["flash_by_window"]
 
 
 # ------------------------------------------------------------ moe
@@ -2126,6 +2167,305 @@ def deepseek_serve(torch, cfg, counters):
         if not ok:
             raise AssertionError(f"deepseek-v2 slot serve run {i + 1} "
                                  "failed its checks")
+
+
+# ------------------------------------------------------------ train
+def train_batch(torch, cfg, seed, b, s, device="cuda"):
+    """Random tokens and labels of ``cfg``'s vocabulary from ``seed``,
+    every weight 1."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    draw = lambda: torch.from_numpy(rng.integers(  # noqa: E731
+        0, cfg.vocab_size, (b, s)).astype(np.int32)).to(device)
+    return {"tokens": draw(), "labels": draw(),
+            "weights": torch.ones(b, s, device=device)}
+
+
+def rel_err(a, b) -> float:
+    return abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+
+
+def grads_err(got, want):
+    """(the worst leaf's max |got - want| over its max |want|, whether
+    every leaf of both is nonzero somewhere)."""
+    from repro_torch.tree import tree_leaves
+    worst, nonzero = 0.0, True
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        g, w = g.float().cpu(), w.float().cpu()
+        scale = w.abs().max().item()
+        nonzero &= scale > 0 and g.abs().max().item() > 0
+        worst = max(worst, (g - w).abs().max().item() / max(scale, 1e-30))
+    return worst, nonzero
+
+
+def train_card_vs_cpu(torch, cfg):
+    """(a) ``value_and_grad`` and one ``make_train_step`` of the reduced
+    ``cfg`` (4 x 1024 tokens: the chunked cross-entropy, remat) on the
+    card against the same on the CPU, float32 at "highest": loss and
+    aux within 1e-5 relative, each gradient leaf within 1e-4 of its max
+    |g| and nonzero somewhere (a silent detach gives zeros), the step's
+    loss and grad norm within 1e-5 relative."""
+    from repro_torch.models import model as M
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train_loop as T
+    from repro_torch.tree import tree_map
+    params = M.init(cfg, 5, device="cpu")
+    params_c = tree_map(lambda t: t.cuda(), params)
+    batch = train_batch(torch, cfg, 6, 4, TRAIN_SEQ, "cpu")
+    batch_c = {k: v.cuda() for k, v in batch.items()}
+    loss_c, met_c, grads_c = T.value_and_grad(params_c, cfg, batch_c)
+    loss, met, grads = T.value_and_grad(params, cfg, batch)
+    worst, nonzero = grads_err(grads_c, grads)
+    step = T.make_train_step(cfg, O.AdamWConfig(**TRAIN_OPT))
+    _, m_c = step(T.TrainState(params_c, O.adamw_init(params_c)), batch_c)
+    _, m = step(T.TrainState(params, O.adamw_init(params)), batch)
+    errs = {k: rel_err(met_c[k], met[k]) for k in met}
+    errs.update({f"step_{k}": rel_err(m_c[k], m[k])
+                 for k in ("loss", "grad_norm")})
+    ok = (rel_err(loss_c, loss) <= TRAIN_LOSS_RTOL
+          and all(e <= TRAIN_LOSS_RTOL for e in errs.values())
+          and worst <= TRAIN_GRAD_TOL and nonzero)
+    emit("train_card_vs_cpu", model=cfg.name, tokens=[4, TRAIN_SEQ],
+         loss=[float(loss_c), float(loss)], rel_errs=errs,
+         worst_grad_err=worst, every_leaf_nonzero=nonzero,
+         tol=dict(loss=TRAIN_LOSS_RTOL, grad=TRAIN_GRAD_TOL), ok=ok)
+    if not ok:
+        raise AssertionError(f"{cfg.name}: the train step on the card "
+                             "disagrees with the CPU")
+
+
+def timed_step(torch, step, state, batch):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    return state, {k: float(v) for k, v in m.items()}, \
+        time.perf_counter() - t0
+
+
+def train_full_width(torch, cfg, dtype):
+    """(b), (c) ``TRAIN_STEPS`` steps with remat of ``cfg`` at full width
+    on 8 x 1024 tokens of the Markov corpus, params in ``dtype`` and
+    float32 moments: finite losses and grad norms, the first loss near
+    ln V; in float32 also the first batch's step with ``grad_accum=2``
+    from the same state, whose loss and grad norm must equal the
+    ``grad_accum=1`` step's.  Step walls, tokens/s, 6*N*tokens/s over
+    the card's peak for the dtype, peak memory, and where a step's time
+    goes (``device_profile``)."""
+    import math
+    from repro_torch.data import synthetic_lm_batches
+    from repro_torch.models import model as M
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train_loop as T
+    opt = O.AdamWConfig(**TRAIN_OPT)
+    data = synthetic_lm_batches(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ,
+                                device="cuda")
+    batch0 = next(data)
+    state = T.init_state(cfg, 0, dtype, "cuda")
+    fields = {}
+    ok = True
+    if dtype == torch.float32:
+        torch.cuda.reset_peak_memory_stats()
+        _, m2, wall2 = timed_step(torch, T.make_train_step(
+            cfg, opt, grad_accum=2), state, batch0)
+        fields["grad_accum_2"] = dict(
+            loss=m2["loss"], grad_norm=m2["grad_norm"], wall_s=wall2,
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    step = T.make_train_step(cfg, opt)
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    for i in range(TRAIN_STEPS):
+        state, m, wall = timed_step(torch, step, state,
+                                    batch0 if i == 0 else next(data))
+        rows.append(dict(loss=m["loss"], grad_norm=m["grad_norm"],
+                         wall_s=wall))
+    peak = torch.cuda.max_memory_allocated()
+
+    def one_step():
+        step(state, batch0)
+        torch.cuda.synchronize()
+    fields["profile"] = device_profile(torch, one_step, 2)
+    if dtype == torch.float32:
+        errs = {k: rel_err(fields["grad_accum_2"][k], rows[0][k])
+                for k in ("loss", "grad_norm")}
+        fields["grad_accum_2_vs_1_rel_err"] = errs
+        ok &= all(e <= TRAIN_ACCUM_RTOL for e in errs.values())
+    n_params = M.count_params(cfg)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    best = min(r["wall_s"] for r in rows)
+    dname = str(dtype).removeprefix("torch.")
+    peak_flops = PEAK_FLOPS[dname]
+    ln_v = math.log(cfg.vocab_size)
+    ok &= (all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+               for r in rows) and abs(rows[0]["loss"] - ln_v) < 0.5)
+    emit("train_step", model=cfg.name, dtype=dname, params=n_params,
+         batch=[TRAIN_BATCH, TRAIN_SEQ], remat=True, steps=rows,
+         ln_vocab=ln_v, best_wall_s=best, tokens_per_s=tokens / best,
+         model_flops_share=6 * n_params * tokens / best / peak_flops,
+         peak_flops=peak_flops, peak_memory_gb=peak / 1e9,
+         card=nvidia_smi(), ok=ok, **fields)
+    if not ok:
+        raise AssertionError(f"{cfg.name} {dname} train steps failed "
+                             "their checks")
+
+
+def load_example(name):
+    """A module of ``examples/`` by file name."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def train_remat(torch, cfg):
+    """(d) ``value_and_grad`` of the 100M config on 8 x 256 tokens with
+    remat on and off: the same loss and gradients within 1e-5, and each
+    one's peak memory."""
+    from repro_torch.models import model as M
+    from repro_torch.training import train_loop as T
+    params = M.init(cfg, 0, device="cuda")
+    batch = train_batch(torch, cfg, 7, 8, 256)
+    runs = {}
+    for remat in (True, False):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        runs[remat] = T.value_and_grad(params, cfg, batch, remat=remat)
+        torch.cuda.synchronize()
+        runs[remat] += (time.perf_counter() - t0,
+                        (torch.cuda.max_memory_allocated() - base) / 1e9)
+    (l1, _, g1, w1, p1), (l0, _, g0, w0, p0) = runs[True], runs[False]
+    worst, nonzero = grads_err(g1, g0)
+    ok = (rel_err(l1, l0) <= REMAT_RTOL and worst <= REMAT_RTOL
+          and nonzero)
+    emit("train_remat", model=cfg.name, tokens=[8, 256],
+         loss=[float(l1), float(l0)], worst_grad_err=worst,
+         peak_gb_above_weights=dict(remat=p1, no_remat=p0),
+         wall_s=dict(remat=w1, no_remat=w0), tol=REMAT_RTOL,
+         card=nvidia_smi(), ok=ok)
+    if not ok:
+        raise AssertionError("remat on and off disagree")
+
+
+def train_phase(torch, counters):
+    """The train phase: (a) the train step of reduced qwen3-0.6b and
+    granite-moe-3b-a800m on the card against the CPU; (b) full-width
+    qwen3-0.6b in float32 with grad_accum 2 against 1; (c) the same in
+    bf16; (d) remat on against off at the 100M config; (e) the 100M
+    example, 300 steps, its loss falling by more than 0.3 and its
+    checkpoint restoring the final state; (f) the blockwise attention
+    of sequences over 2048 tokens.  No hand-written kernel launches: the
+    trainer's attention is plain torch."""
+    import shutil
+    from repro_torch.configs import get_config, get_reduced_config
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = {n: m.launches for n, m in counters.items()}
+    for arch in ("qwen3-0.6b", "granite-moe-3b-a800m"):
+        train_card_vs_cpu(torch, get_reduced_config(arch))
+    qwen = get_config("qwen3-0.6b")
+    train_blockwise(torch, get_reduced_config("qwen3-0.6b"), qwen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for dtype in (torch.float32, torch.bfloat16):
+        train_full_width(torch, qwen, dtype)
+        gc.collect()
+        torch.cuda.empty_cache()
+    example = load_example("torch_train_dense_100m")
+    train_remat(torch, example.model_100m())
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt_100m"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    _, history = example.main(["--steps", str(EXAMPLE_STEPS),
+                               "--torch-device", "cuda", "--ckpt-dir",
+                               str(ckpt_dir)])
+    if example.ckpt.latest_step(str(ckpt_dir)) != EXAMPLE_STEPS:
+        raise AssertionError("the example saved no checkpoint of its last "
+                             "step")
+    emit("train_example", steps=EXAMPLE_STEPS,
+         loss=[history[0]["loss"], history[-1]["loss"]],
+         wall_s=time.perf_counter() - t0, card=nvidia_smi(), ok=True)
+    after = {n: m.launches for n, m in counters.items()}
+    if after != before:
+        raise AssertionError(f"a kernel launched in training: {before} -> "
+                             f"{after}")
+
+
+def train_blockwise(torch, cfg, full):
+    """(f) The trainer's blockwise attention, which every sequence over
+    2048 tokens trains through (Sq*Sk > 2048**2).  ``value_and_grad`` of
+    the reduced ``cfg`` on one ``BLOCKWISE_SEQ``-token sequence, card
+    against CPU with (a)'s tolerances, and its peak memory on the card;
+    then the attention alone at ``full``'s heads on one such sequence,
+    forward and backward on the card: ``attn_causal_plain`` (blockwise,
+    each q block's sweep rematerialized) against the dense masked
+    ``attention`` it stands in for, outputs and Q/K/V gradients within
+    1e-4 of their max, each path's peak memory above its inputs and its
+    wall (the second of two calls)."""
+    from repro_torch.models import layers
+    from repro_torch.models import model as M
+    from repro_torch.training import train_loop as T
+    from repro_torch.tree import tree_map
+    s = BLOCKWISE_SEQ
+    params = M.init(cfg, 7, device="cpu")
+    params_c = tree_map(lambda t: t.cuda(), params)
+    batch = train_batch(torch, cfg, 8, 1, s, "cpu")
+    batch_c = {k: v.cuda() for k, v in batch.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    loss_c, _, grads_c = T.value_and_grad(params_c, cfg, batch_c)
+    torch.cuda.synchronize()
+    model_peak = torch.cuda.max_memory_allocated() - base
+    loss, _, grads = T.value_and_grad(params, cfg, batch)
+    worst, nonzero = grads_err(grads_c, grads)
+    model_ok = (rel_err(loss_c, loss) <= TRAIN_LOSS_RTOL
+                and worst <= TRAIN_GRAD_TOL and nonzero)
+
+    h, hkv, d = full.n_heads, full.n_kv_heads, full.head_dim
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    q = torch.randn(1, s, h, d, generator=gen, device="cuda")
+    k, v = (torch.randn(1, s, hkv, d, generator=gen, device="cuda")
+            for _ in range(2))
+    cot = torch.randn(1, s, h, d, generator=gen, device="cuda")
+    mask = layers.causal_mask(s, s, device="cuda")[None]
+    paths = {"dense": lambda q, k, v: layers.attention(q, k, v, mask),
+             "blockwise": layers.attn_causal_plain}
+    res = {}
+    for name, fn in paths.items():
+        for _ in range(2):
+            ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            o = fn(*ts)
+            g = torch.autograd.grad((o * cot).sum(), ts)
+            torch.cuda.synchronize()
+            res[name] = ([o.detach(), *g], time.perf_counter() - t0,
+                         torch.cuda.max_memory_allocated() - base)
+            del o, g, ts
+    errs = [(b - a).abs().max().item() / a.abs().max().item()
+            for a, b in zip(res["dense"][0], res["blockwise"][0])]
+    ok = model_ok and max(errs) <= TRAIN_GRAD_TOL
+    emit("train_blockwise", model=cfg.name, tokens=[1, s],
+         loss=[float(loss_c), float(loss)],
+         loss_rel_err=rel_err(loss_c, loss), worst_grad_err=worst,
+         every_leaf_nonzero=nonzero, model_peak_mem_bytes=model_peak,
+         attention=dict(heads=[h, hkv, d], dtype="float32",
+                        rel_errs_out_dq_dk_dv=errs,
+                        wall_s={n: r[1] for n, r in res.items()},
+                        peak_mem_bytes={n: r[2] for n, r in res.items()}),
+         tol=dict(loss=TRAIN_LOSS_RTOL, grad=TRAIN_GRAD_TOL),
+         card=nvidia_smi(), ok=ok)
+    if not ok:
+        raise AssertionError("the blockwise attention's training path "
+                             "disagrees")
+    del res, q, k, v, cot, mask
 
 
 # ------------------------------------------------------------ timing
@@ -2302,11 +2642,13 @@ def timing(torch, cfg, launches, long_rows=True, **extra):
     return lines
 
 
-def flash_timing(torch, cfg, launches):
+def flash_timing(torch, cfg, launches, by_window):
     """flash_prefill at the slot path's prefill shapes: gemma3-4b's
     heads (H 8, Hkv 4, D 256), one 2048-token prompt, bf16, with the SWA
     layers' window and without (the DENSE layers).  The first row goes
-    into the ``kernels`` line, the second only into its timing line."""
+    into the ``kernels`` line, the second only into its timing line.
+    Each row's ``launches_in_mode`` is the slot serve's launches with
+    its window, as the wrapper counted them (``by_window``)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     from repro_torch.models import layers
@@ -2344,6 +2686,7 @@ def flash_timing(torch, cfg, launches):
                                                          window=win)),
             time_ms(torch, library), nbytes, flops, "bfloat16",
             case=f"B1 S{s} H{h} Hkv{hkv} D{d} bf16 window {win}",
+            launches_in_mode=by_window.get(win, 0),
             device_ms=kernel_device_ms(
                 torch, lambda: ops.flash_attention(q, k, v, ln, window=win),
                 "flash_prefill"),
@@ -2447,9 +2790,10 @@ def profile_moe(torch, cfg):
     the least time the card could take to read every weight once (the
     capacity buffer runs every expert in every step)."""
     from repro_torch.engine import paged_model as PM
+    from repro_torch.tree import tree_leaves
     params, pool, a, page = step_inputs(torch, cfg, torch.bfloat16)
     weight_bytes = sum(t.numel() * t.element_size()
-                       for t in iter_leaves(params))
+                       for t in tree_leaves(params))
 
     def step():
         PM.mixed_step(params, pool, **a, cfg=cfg, page_size=page)
@@ -2469,14 +2813,6 @@ def profile_moe(torch, cfg):
          decode_rows=a["dec_tokens"].shape[0], weight_bytes=weight_bytes,
          weight_read_bound_ms=bound, **device_profile(torch, decode, 10))
     del params, pool
-
-
-def iter_leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from iter_leaves(v)
-    else:
-        yield tree
 
 
 def profile_slot(torch, cfg):
@@ -2547,7 +2883,8 @@ def ptxas_summary(log):
 
 
 PHASES = ("kernels", "sampling", "step", "serve", "lora", "tiers", "spec",
-          "launch", "slot_step", "slot_serve", "moe", "timing", "profile")
+          "launch", "slot_step", "slot_serve", "moe", "train", "timing",
+          "profile")
 
 
 def main() -> int:
@@ -2610,6 +2947,7 @@ def main() -> int:
     gemma = get_config("gemma3-4b")
     granite = get_config("granite-moe-3b-a800m")
     launches = slot_launches = moe_launches = dict.fromkeys(KERNEL_INFO, 0)
+    slot_by_window = {}
     if "step" in only:
         full_width_step(torch, cfg)
     if "serve" in only:
@@ -2636,7 +2974,7 @@ def main() -> int:
     if "slot_step" in only:
         slot_step(torch, gemma, fp)
     if "slot_serve" in only:
-        slot_launches = slot_serve(torch, gemma, {
+        slot_launches, slot_by_window = slot_serve(torch, gemma, {
             "flash_prefill": fp, "paged_attention": pa, "paged_prefill": pp})
     if "moe" in only:
         t0 = time.perf_counter()
@@ -2645,10 +2983,15 @@ def main() -> int:
                 "flash_prefill": fp, "paged_attention": pa,
                 "paged_prefill": pp})
         emit("moe_done", seconds=time.perf_counter() - t0)
+    if "train" in only:
+        t0 = time.perf_counter()
+        train_phase(torch, {"flash_prefill": fp, "paged_attention": pa,
+                            "paged_prefill": pp})
+        emit("train_done", seconds=time.perf_counter() - t0)
     lines = []
     if "timing" in only:
-        lines = timing(torch, cfg, launches) + flash_timing(torch, gemma,
-                                                            slot_launches)
+        lines = timing(torch, cfg, launches) + flash_timing(
+            torch, gemma, slot_launches, slot_by_window)
         timing(torch, granite, moe_launches, long_rows=False,
                model=granite.name)
         # each path's launches: the serves of qwen3-0.6b (the kernels'

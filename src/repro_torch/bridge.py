@@ -1,5 +1,5 @@
-"""Carry weights, adapters, KV pages and slot caches over from the JAX
-package, as numpy arrays.
+"""Carry weights, adapters, KV pages, slot caches and training states over
+from the JAX package, as numpy arrays, and training states back.
 
 ``repro`` draws its parameters with ``jax.random`` and the port with
 ``torch.Generator``s, so the two never agree from a seed.  To compute
@@ -24,19 +24,18 @@ from repro_torch.engine.paged_model import PagePool
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import Spec
+from repro_torch.payload import from_payload, to_payload
+from repro_torch.training.optimizer import AdamWState
+from repro_torch.training.train_loop import TrainState
+from repro_torch.tree import tree_map
 
 
 def to_tensor(a: Any, dtype=None, device=None) -> torch.Tensor:
     """numpy (or array-like) -> tensor on ``device`` (the card unless
-    one is named); numpy bfloat16 (ml_dtypes) arrays are reinterpreted
-    bit for bit."""
+    one is named), a copy; bfloat16 payloads are reinterpreted bit for
+    bit."""
     device = resolve_device(device)
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy()
-                             ).view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(np.array(a, copy=True))
+    t = from_payload(np.array(a, copy=True))
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
@@ -122,3 +121,26 @@ def caches_from_numpy(caches: Sequence[Mapping], cfg: ModelConfig,
             conv[name] = t
         out.append(conv)
     return out
+
+
+def train_state_from_numpy(state: Any, cfg: ModelConfig, dtype=None,
+                           device=None) -> TrainState:
+    """A JAX ``TrainState`` with numpy leaves (``params``, and ``opt``
+    with ``step``, ``mu`` and ``nu``) -> the port's, on ``device`` (the
+    card unless one is named).  The params take ``dtype`` if given; the
+    moments keep theirs and the step stays int32."""
+    device = resolve_device(device)
+    opt = state.opt
+    return TrainState(
+        params_from_numpy(state.params, cfg, dtype, device),
+        AdamWState(to_tensor(opt.step, torch.int32, device),
+                   params_from_numpy(opt.mu, cfg, None, device),
+                   params_from_numpy(opt.nu, cfg, None, device)))
+
+
+def tree_to_numpy(tree: Any) -> Any:
+    """A tree of tensors (dicts and NamedTuples, a ``TrainState`` among
+    them) -> the same tree of numpy arrays on the host; bfloat16 leaves
+    as ``ml_dtypes.bfloat16`` where that imports, which ``jnp.asarray``
+    takes as they are."""
+    return tree_map(to_payload, tree)

@@ -25,9 +25,8 @@ readbacks are charged.
 
 It also owns the page *payload* side of the KV tiers: a page leaves the
 device as numpy ``(L, page, Hkv, D)`` K and V arrays, the JAX package's
-format (bf16 as ``ml_dtypes.bfloat16`` where that package imports, else
-as ``tiers.BF16`` bit patterns, see there), so the host, SSD and
-distributed tiers hold the same payloads for both packages.
+format (``repro_torch.payload``), so the host, SSD and distributed tiers
+hold the same payloads for both packages.
 """
 from __future__ import annotations
 
@@ -38,7 +37,6 @@ from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.core.kvcache.tiers import BF16
 from repro_torch.engine import paged_model as PM
 from repro_torch.engine.request import Request
 from repro_torch.engine.sampling import prng_key, row_keys, sample, split
@@ -46,35 +44,9 @@ from repro_torch.engine.scheduler import PrefillWork, ScheduleOutput
 from repro_torch.engine.speculative import accept_length
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
+from repro_torch.payload import from_payload, to_payload
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-try:        # numpy's bfloat16, where installed (it comes with JAX)
-    from ml_dtypes import bfloat16 as _NP_BF16
-except ImportError:
-    _NP_BF16 = BF16
-
-
-def to_payload(page: torch.Tensor) -> np.ndarray:
-    """A page tensor -> a numpy array that owns its memory (a copy on the
-    CPU too: ``.numpy()`` of a CPU tensor would alias the pool, which the
-    next step overwrites in place, under a host-tier entry).  bfloat16
-    comes out as an ``ml_dtypes.bfloat16`` array, which a JAX engine
-    installs as it is, or as ``BF16`` bit patterns where ``ml_dtypes``
-    is not installed (no JAX engine can then share the payload)."""
-    page = page.to("cpu", copy=True)
-    if page.dtype == torch.bfloat16:
-        return page.view(torch.int16).numpy().view(_NP_BF16)
-    return page.numpy()
-
-
-def from_payload(a) -> torch.Tensor:
-    """A payload array -> a CPU tensor: ``BF16`` and ``ml_dtypes.bfloat16``
-    arrays (by dtype name) bit for bit as bfloat16, others as they are."""
-    a = np.ascontiguousarray(a)
-    if a.dtype == BF16 or a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
-    return torch.from_numpy(a)
 
 
 class InFlight(NamedTuple):

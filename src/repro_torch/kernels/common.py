@@ -10,6 +10,20 @@ import torch
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def refuse_autograd(kernel: str, *tensors: torch.Tensor) -> None:
+    """Raise, on any device, when autograd would record through the
+    wrapper: a kernel's output has no ``grad_fn``, so a loss through it
+    would give zero gradients to everything before it, silently.  The
+    CPU raises too, though the plain version there could differentiate,
+    so that a CPU run shows what the card would do."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: the kernel has no backward, and an input requires "
+            "grad; train through the plain attention (models.model."
+            "forward(..., impl='train'), as loss_fn does) or call under "
+            "torch.no_grad()")
+
+
 def on_cpu(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on the CPU (the wrapper then computes
     the plain version), False when all lie on one CUDA device."""

@@ -4,7 +4,10 @@ the Pallas TPU kernel ``repro/kernels/flash_prefill.py::flash_prefill``.
 
 For tensors on the CPU the wrapper computes the plain version
 (``ref.flash_prefill_ref``); for CUDA tensors it launches the kernel or
-raises.  ``launches`` counts kernel launches.
+raises.  On every device it refuses inputs that require grad while
+autograd records: the kernel has no backward.  ``launches`` counts kernel
+launches, and ``launches_by_window`` counts them by their ``window``
+(0: none).
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from repro_torch.kernels import build, common
 from repro_torch.kernels.ref import flash_prefill_ref
 
 launches = 0
+launches_by_window: dict = {}
 
 
 @functools.cache
@@ -38,6 +42,7 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window < 0 or q_offset < 0:
         raise ValueError(f"window ({window}) and q_offset ({q_offset}) "
                          "must be >= 0")
+    common.refuse_autograd("flash_prefill", q, k, v)
     if common.on_cpu(q, k, v, lengths):
         return flash_prefill_ref(q, k, v, lengths, window=window,
                                  q_offset=q_offset)
@@ -56,4 +61,5 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     common.raise_on_error(err, "flash_prefill")
     global launches
     launches += 1
+    launches_by_window[window] = launches_by_window.get(window, 0) + 1
     return out

@@ -4,8 +4,9 @@ in ``csrc/paged_attention.cu``, which replaces the Pallas TPU kernel
 
 For tensors on the CPU the wrapper computes the plain version
 (``ref.paged_attention_ref``); for CUDA tensors it launches the kernel
-or raises.  ``launches`` counts kernel launches: one a call, the
-combine of the splits included.
+or raises.  On every device it refuses inputs that require grad while
+autograd records: the kernel has no backward.  ``launches`` counts
+kernel launches: one a call, the combine of the splits included.
 """
 from __future__ import annotations
 
@@ -82,6 +83,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     lengths: torch.Tensor) -> torch.Tensor:
     """q: (B, H, D); k_pages/v_pages: (P, page, Hkv, D); block_tables:
     (B, NB) int32; lengths: (B,) int32 -> (B, H, D)."""
+    common.refuse_autograd("paged_attention", q, k_pages, v_pages)
     if common.on_cpu(q, k_pages, v_pages, block_tables, lengths):
         return paged_attention_ref(q, k_pages, v_pages, block_tables,
                                    lengths)

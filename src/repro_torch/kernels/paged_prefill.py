@@ -4,7 +4,9 @@ Pallas TPU kernel ``repro/kernels/paged_prefill.py::paged_prefill``.
 
 For tensors on the CPU the wrapper computes the plain version
 (``ref.paged_prefill_ref``); for CUDA tensors it launches the kernel or
-raises.  ``launches`` counts kernel launches.
+raises.  On every device it refuses inputs that require grad while
+autograd records: the kernel has no backward.  ``launches`` counts kernel
+launches.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ def paged_prefill(q: torch.Tensor, k_pages: torch.Tensor,
     D), already holding the chunk's K/V; block_tables: (B, NB) int32;
     ctx_lens/chunk_lens: (B,) int32.  Returns (B, S, H, D) with rows
     ``>= chunk_lens[b]`` zeroed."""
+    common.refuse_autograd("paged_prefill", q, k_pages, v_pages)
     if common.on_cpu(q, k_pages, v_pages, block_tables, ctx_lens,
                      chunk_lens):
         return paged_prefill_ref(q, k_pages, v_pages, block_tables,

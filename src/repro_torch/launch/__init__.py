@@ -1,1 +1,2 @@
-"""Entry points of the port: ``serve``, the serving launcher."""
+"""Entry points of the port: ``serve``, the serving launcher, and
+``train``, the training launcher."""

@@ -117,11 +117,16 @@ def init_cache(cfg: C.ModelConfig, ltype: str, batch: int, cache_len: int,
 
 # ------------------------------------------------------------------ attention paths
 def _attn_full(p, cfg, x, positions, cache, window: int, impl: str):
-    """Full-sequence attention (prefill); optionally fills the cache."""
+    """Full-sequence attention (prefill or training); optionally fills
+    the cache."""
     s = x.shape[1]
     q, k, v = layers.attn_qkv(p, cfg, x, positions)
-    o = layers.attn_causal(q, k, v, window=window,
-                           softcap=cfg.attn_logit_softcap, impl=impl)
+    if impl == "train":
+        o = layers.attn_causal_plain(q, k, v, window=window,
+                                     softcap=cfg.attn_logit_softcap)
+    else:
+        o = layers.attn_causal(q, k, v, window=window,
+                               softcap=cfg.attn_logit_softcap, impl=impl)
     if cache is not None:
         ck, cv = cache["k"], cache["v"]
         if "pos" in cache:  # ring buffer: only the last `window` tokens
@@ -169,9 +174,11 @@ def apply_layer(p: dict, cfg: C.ModelConfig, ltype: str, x: torch.Tensor,
                            Optional[moe.Routing]]:
     """Residual block.  Returns (x, cache, routing): the MoE FFN's
     routing, from which ``moe.aux_losses`` computes the reference's
-    auxiliary losses, None for the other layers.  ``impl`` picks the
-    kernel or the plain version of the full-mode GQA attention (MLA has
-    no kernel)."""
+    auxiliary losses, None for the other layers.  ``impl`` routes the
+    full-mode GQA attention: "kernel" to the ``flash_prefill`` kernel,
+    "ref" to its plain version (both for serving), "train" to the
+    trainer's differentiable ``layers.attn_causal_plain``, the JAX
+    package's ``attn_causal`` (MLA has no kernel and always takes it)."""
     _check_ported(cfg, ltype)
     if mode not in ("full", "decode"):
         raise ValueError(f"mode must be 'full' or 'decode', got {mode!r}")

@@ -1,8 +1,9 @@
 """Shared building blocks, the PyTorch counterpart of
 ``repro/models/layers.py``: norms, RoPE, masks, GQA attention (dense,
 causal/windowed through the ``flash_prefill`` kernel, and the plain
-causal path with ``_blockwise`` that MLA calls), projections and the
-gated MLP.  ``mlstm_parallel`` (xLSTM) is not ported yet.
+causal path with ``_blockwise`` that the trainer and MLA call),
+projections and the gated MLP.  ``mlstm_parallel`` (xLSTM) is not
+ported yet.
 
 Plain functions on tensors; parameters arrive as dicts built from
 ``repro_torch.models.params.Spec`` trees in ``repro``'s layouts
@@ -15,6 +16,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import NEG_INF
@@ -138,27 +140,35 @@ def attn_causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def attn_causal_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      *, scale: Optional[float] = None, block_q: int = 512,
+                      *, window: int = 0, softcap: float = 0.0,
+                      scale: Optional[float] = None, block_q: int = 512,
                       block_k: int = 512,
                       force_blockwise: bool = False) -> torch.Tensor:
-    """The JAX package's ``attn_causal`` with an explicit scale and no
-    window, softcap or offset, in plain torch: the dense masked
+    """The JAX package's ``attn_causal`` (at ``q_offset`` 0) in plain
+    torch, the trainer's attention and MLA's: the dense masked
     ``attention`` when Sq*Sk <= 2048**2, else ``_blockwise``, an online
     softmax over (block_q, block_k) tiles that never holds the (Sq, Sk)
-    scores.  Q/K and V may differ in width (MLA: 192 and 128).  No
-    kernel is involved, on any device."""
+    scores.  ``window`` > 0 keeps the keys ``kpos > qpos - window``;
+    ``softcap`` > 0 caps the logits with ``tanh``.  Q/K and V may differ
+    in width (MLA: 192 and 128).  No kernel is involved, on any device,
+    so autograd differentiates it."""
     sq, sk = q.shape[1], k.shape[1]
     if sq * sk <= 2048 * 2048 and not force_blockwise:
-        mask = causal_mask(sq, sk, device=q.device)[None]
-        return attention(q, k, v, mask, scale=scale)
-    return _blockwise(q, k, v, scale=scale, block_q=block_q,
-                      block_k=block_k)
+        mask = causal_mask(sq, sk, window=window, device=q.device)[None]
+        return attention(q, k, v, mask, softcap=softcap, scale=scale)
+    return _blockwise(q, k, v, scale=scale, window=window, softcap=softcap,
+                      block_q=block_q, block_k=block_k)
 
 
-def _blockwise(q, k, v, *, scale, block_q=512, block_k=512):
+def _blockwise(q, k, v, *, scale, window=0, softcap=0.0, block_q=512,
+               block_k=512):
     """``repro.models.layers._blockwise`` with the softmax norm: every
     (q block, k block) pair is visited in order, as the reference's
-    scans do, with the running max, sum and accumulator in float32."""
+    scans do, with the running max, sum and accumulator in float32.
+    While autograd records, each q block's sweep runs under
+    ``torch.utils.checkpoint`` and is recomputed in the backward, as the
+    reference rematerializes it: otherwise the backward would keep the
+    accumulators of every (q block, k block) pair, O(Sq*Sk) memory."""
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     dv = v.shape[-1]
@@ -171,10 +181,9 @@ def _blockwise(q, k, v, *, scale, block_q=512, block_k=512):
     k = F.pad(k, (0, 0, 0, 0, 0, sk_p - sk))
     v = F.pad(v, (0, 0, 0, 0, 0, sk_p - sk))
     dev = q.device
-    outs = []
-    for qi in range(sq_p // bq):
-        q32 = q[:, qi * bq:(qi + 1) * bq].float().reshape(
-            b, bq, hkv, g, d) * scale
+
+    def sweep(q_blk, k, v, qi):
+        q32 = q_blk.float().reshape(b, bq, hkv, g, d) * scale
         qpos = qi * bq + torch.arange(bq, device=dev)
         acc = torch.zeros(b, hkv, g, bq, dv, device=dev)
         m = torch.full((b, hkv, g, bq), NEG_INF, device=dev)
@@ -183,8 +192,12 @@ def _blockwise(q, k, v, *, scale, block_q=512, block_k=512):
             k32 = k[:, ki * bk:(ki + 1) * bk].float()
             v32 = v[:, ki * bk:(ki + 1) * bk].float()
             logits = torch.einsum("bqhgd,bkhd->bhgqk", q32, k32)
+            if softcap:
+                logits = torch.tanh(logits / softcap) * softcap
             kpos = ki * bk + torch.arange(bk, device=dev)
             mask = (kpos[None, :] <= qpos[:, None]) & (kpos[None, :] < sk)
+            if window:
+                mask &= kpos[None, :] > qpos[:, None] - window
             score = logits.masked_fill(~mask, NEG_INF)
             m_new = torch.maximum(m, score.amax(-1))
             alpha = torch.exp(m - m_new)
@@ -193,7 +206,15 @@ def _blockwise(q, k, v, *, scale, block_q=512, block_k=512):
             acc = acc * alpha[..., None] + torch.einsum(
                 "bhgqk,bkhd->bhgqd", p, v32)
             m = m_new
-        outs.append(acc / torch.clamp(den, min=1e-30)[..., None])
+        return acc / torch.clamp(den, min=1e-30)[..., None]
+
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    outs = []
+    for qi in range(sq_p // bq):
+        q_blk = q[:, qi * bq:(qi + 1) * bq]
+        outs.append(checkpoint(sweep, q_blk, k, v, qi, use_reentrant=False)
+                    if remat else sweep(q_blk, k, v, qi))
     out = torch.stack(outs)                      # (nq, b, hkv, g, bq, dv)
     out = out.permute(1, 0, 4, 2, 3, 5).reshape(b, sq_p, h, dv)
     return out[:, :sq].to(q.dtype)

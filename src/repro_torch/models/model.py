@@ -13,15 +13,20 @@ run's layers; ``forward`` writes them in place and returns the same
 list.
 
 Entry points:
+  * ``loss_fn``      training: full causal pass, chunked cross-entropy
+                     and the MoE aux losses, differentiable
   * ``prefill``      full causal pass over a prompt, fills the caches
   * ``decode_step``  one token per row against the caches
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks, layers, moe
@@ -134,9 +139,11 @@ def layer_view(tree, i: int):
 
 def _trunk(params, cfg: C.ModelConfig, tokens: torch.Tensor,
            positions: Optional[torch.Tensor], caches: Optional[List[dict]],
-           mode: str, impl: str):
+           mode: str, impl: str, remat: bool = False):
     """The embedding, every layer and the final norm.  Returns (hidden,
-    the MoE layers' routings)."""
+    the MoE layers' routings).  ``remat`` runs each layer under
+    ``torch.utils.checkpoint`` (recomputed in the backward), as the
+    reference wraps its scan body in ``jax.checkpoint``."""
     if mode == "full":
         b, s = tokens.shape[:2]
         if positions is None:
@@ -151,8 +158,11 @@ def _trunk(params, cfg: C.ModelConfig, tokens: torch.Tensor,
         run_c = caches[i] if caches is not None else None
         for j in range(n):
             c_l = layer_view(run_c, j) if run_c is not None else None
-            x, _, r = blocks.apply_layer(layer_view(run_p, j), cfg, ltype,
-                                         x, positions, c_l, mode, impl=impl)
+            layer = functools.partial(
+                blocks.apply_layer, layer_view(run_p, j), cfg, ltype,
+                positions=positions, cache=c_l, mode=mode, impl=impl)
+            x, _, r = (checkpoint(layer, x, use_reentrant=False) if remat
+                       else layer(x))
             if r is not None:
                 routings.append(r)
     return layers.rms_norm(x, params["final_norm"], cfg.norm_eps), routings
@@ -161,16 +171,19 @@ def _trunk(params, cfg: C.ModelConfig, tokens: torch.Tensor,
 def forward(params, cfg: C.ModelConfig, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None,
             caches: Optional[List[dict]] = None, mode: str = "full",
-            impl: str = "kernel"):
+            impl: str = "kernel", remat: bool = False):
     """Returns (hidden (B, S, d), caches, aux): aux sums each MoE
     auxiliary loss over the layers, one 0-d tensor a key (empty without
     MoE layers).  ``prefill`` and ``decode_step`` skip the aux.
 
     mode="full": tokens (B, S) (or (B, S, K)), positions default to
     0..S-1.  mode="decode": tokens (B,) (or (B, K)), positions (B,).
-    ``impl`` picks the kernel or the plain version of the full-mode
-    attention."""
-    x, routings = _trunk(params, cfg, tokens, positions, caches, mode, impl)
+    ``impl`` routes the full-mode attention (``blocks.apply_layer``):
+    "kernel" or "ref" for serving, "train" for a differentiable pass.
+    ``remat`` recomputes each layer in the backward instead of keeping
+    its activations."""
+    x, routings = _trunk(params, cfg, tokens, positions, caches, mode, impl,
+                         remat)
     aux_total: Dict[str, torch.Tensor] = {}
     for r in routings:
         for k, v in moe.aux_losses(r, cfg.moe).items():
@@ -179,6 +192,49 @@ def forward(params, cfg: C.ModelConfig, tokens: torch.Tensor,
 
 
 # ===================================================================== steps
+def _nll_chunk(params, cfg: C.ModelConfig, x_chunk: torch.Tensor,
+               labels_chunk: torch.Tensor) -> torch.Tensor:
+    """Cross-entropy over one sequence chunk, from float32 logits (B,
+    chunk, V), averaged over the codebooks where there are several."""
+    logits = unembed(params, cfg, x_chunk).float()
+    labels = labels_chunk.long()
+    nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                          labels.reshape(-1), reduction="none")
+    nll = nll.reshape(labels.shape)
+    if cfg.num_codebooks:
+        nll = nll.mean(-1)
+    return nll
+
+
+def loss_fn(params, cfg: C.ModelConfig, batch: Dict[str, torch.Tensor],
+            remat: bool = True, ce_chunk: int = 512):
+    """batch: tokens, labels, weights.  Returns (loss + the MoE aux
+    losses, metrics {"nll": loss, **aux}), differentiable in ``params``.
+
+    The attention is the trainer's plain one (``impl="train"``).  Where
+    the sequence splits into more than one whole ``ce_chunk``, the
+    cross-entropy runs chunk by chunk, each under
+    ``torch.utils.checkpoint``, so the float32 logits of only one
+    (B, chunk, V) block live at a time, forward and backward."""
+    x, _, aux = forward(params, cfg, batch["tokens"], mode="full",
+                        impl="train", remat=remat)
+    labels = batch["labels"]
+    s = x.shape[1]
+    ck = min(ce_chunk, s)
+    if s % ck == 0 and s > ck:
+        chunk = functools.partial(_nll_chunk, params, cfg)
+        nll = torch.cat([checkpoint(chunk, x[:, i:i + ck],
+                                    labels[:, i:i + ck], use_reentrant=False)
+                         for i in range(0, s, ck)], dim=1)
+    else:
+        nll = _nll_chunk(params, cfg, x, labels)
+    w = batch["weights"].float()
+    loss = (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
+    metrics = {"nll": loss, **aux}
+    total = loss + sum(aux.values(), torch.zeros((), device=loss.device))
+    return total, metrics
+
+
 def prefill(params, cfg: C.ModelConfig, tokens: torch.Tensor,
             caches: List[dict], impl: str = "kernel"):
     """Full prefill; returns (last-token logits (B, ...), caches)."""

@@ -1,6 +1,7 @@
-"""Import hygiene of the port: nothing under ``src/repro_torch/`` and not
-``chip_smoke.py`` imports ``jax`` or anything of the JAX package
-``repro``, and importing the port's engine loads neither."""
+"""Import hygiene of the port: nothing under ``src/repro_torch/``, no
+``examples/torch_*.py`` and not ``chip_smoke.py`` imports ``jax`` or
+anything of the JAX package ``repro``, and importing the port's engine
+or trainer loads neither."""
 import ast
 import pathlib
 import subprocess
@@ -11,8 +12,8 @@ import pytest
 pytest.importorskip("torch")
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + sorted(
+    (REPO / "examples").glob("torch_*.py")) + [REPO / "chip_smoke.py"]
 BANNED = ("jax", "jaxlib", "repro")
 
 
@@ -42,7 +43,9 @@ def test_port_files_import_no_jax_and_no_repro():
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.engine, repro_torch.bridge, "
-            "repro_torch.configs, repro_torch.kernels.ops; "
+            "repro_torch.configs, repro_torch.kernels.ops, "
+            "repro_torch.training.checkpoint, repro_torch.data, "
+            "repro_torch.launch.train; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = {"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin"}
