@@ -22,6 +22,7 @@ from repro_torch.device import resolve_device
 from repro_torch.engine import paged_model as PM
 from repro_torch.engine.paged_model import PagePool
 from repro_torch.models import model as M
+from repro_torch.models.blocks import STATE_FIELDS
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import Spec
 from repro_torch.payload import from_payload, to_payload
@@ -97,8 +98,10 @@ def caches_from_numpy(caches: Sequence[Mapping], cfg: ModelConfig,
                       device=None) -> List[dict]:
     """The JAX package's slot caches (one dict per layer run, leaves as
     numpy arrays) -> the port's, on ``device`` (the card unless one is
-    named).  K/V and MLA latents take ``dtype`` if given; ring positions
-    stay int32.
+    named).  K/V, MLA latents and conv buffers take ``dtype`` if given;
+    ring positions stay int32 and the recurrent states (Mamba's ``h``,
+    mLSTM's ``C``/``n``/``m``, sLSTM's ``c``/``n``/``m``/``h``) float32,
+    as ``models.model.init_cache`` holds them.
     Raises on a missing or extra run or field, or a shape mismatch with
     ``models.model.cache_struct(cfg, batch, cache_len)``."""
     device = resolve_device(device)
@@ -113,8 +116,9 @@ def caches_from_numpy(caches: Sequence[Mapping], cfg: ModelConfig,
                              f"{sorted(want)}")
         conv = {}
         for name, (shape, _axes) in want.items():
-            t = to_tensor(run[name], torch.int32 if name == "pos" else dtype,
-                          device)
+            want_dtype = (torch.int32 if name == "pos" else torch.float32
+                          if name in STATE_FIELDS else dtype)
+            t = to_tensor(run[name], want_dtype, device)
             if tuple(t.shape) != tuple(shape):
                 raise ValueError(f"run {i}/{name}: shape {tuple(t.shape)}, "
                                  f"expected {shape}")

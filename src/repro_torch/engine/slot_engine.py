@@ -1,23 +1,25 @@
 """Slot-based engine for the models the paged engine does not take
 (sliding-window patterns such as gemma3's 5:1 local:global, codebook
-streams such as MusicGen, MLA layers such as deepseek-v2's), the
-PyTorch counterpart of ``repro/engine/slot_engine.py``.
+streams such as MusicGen, MLA layers such as deepseek-v2's, the
+recurrent and hybrid layers of xLSTM and Hymba), the PyTorch
+counterpart of ``repro/engine/slot_engine.py``.
 
 Every slot owns one row of contiguous per-slot caches
-(``models.model.init_cache``).  A request is prefilled alone into a
-fresh one-row cache, which is then copied over its slot's whole row in
-place (every field: K/V, ring positions, MLA latents); the active
-slots then decode together, one token per step, while empty slots carry
-token 0 at position 0 as in the JAX engine.  The queue, admission and
-finish bookkeeping is the copied
-:class:`repro_torch.engine.scheduler.SchedulerCore`, so the
-handle contract (``submit``/``step``/``metrics``/``match_prefix_len``)
+(``models.model.init_cache``; recurrent states double as the "KV
+cache" of SSM layers, constant-size).  A request is prefilled alone
+into a fresh one-row cache, which is then copied over its slot's whole
+row in place (every field: K/V, ring positions, MLA latents, recurrent
+states); the active slots then decode together, one token per step,
+while empty slots carry token 0 at position 0 and update their states
+as in the JAX engine (a prefill overwrites the whole row).  The queue,
+admission and finish bookkeeping is the copied
+:class:`repro_torch.engine.scheduler.SchedulerCore`, so the handle
+contract (``submit``/``step``/``metrics``/``match_prefix_len``)
 is the paged engine's.
 
 Sampling is the JAX slot engine's: one split of the engine's key stream
 (``PRNGKey(seed + 1)``) per sampled step, no nucleus filter, and greedy
-per codebook for codebook models.  The SSM and hybrid layer types are
-not ported yet, so xLSTM and Hymba configs are refused.
+per codebook for codebook models.
 """
 from __future__ import annotations
 
@@ -57,8 +59,6 @@ class SlotEngine:
                              f"{self.ecfg.dtype!r}")
         self.dtype = DTYPES[self.ecfg.dtype]
         self.device = resolve_device(device)
-        # raises for the layer types that are not ported, params given or not
-        M.model_specs(cfg)
         self.params = params if params is not None else M.init(
             cfg, seed, self.dtype, self.device)
         self.caches = M.init_cache(cfg, self.ecfg.max_slots,

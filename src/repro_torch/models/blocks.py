@@ -2,11 +2,13 @@
 ``repro/models/blocks.py``: parameter specs, cache shapes and the residual
 block forward.
 
-Ported: DENSE and SWA (sliding-window) layers, MOE (GQA attention and
-the mixture-of-experts FFN), and MLA_DENSE and MLA_MOE (multi-head
-latent attention, whose caches hold the latents ``c_kv`` and
-``k_rope``).  The Hymba and xLSTM types raise ``NotImplementedError``
-naming their ROADMAP item.
+Every layer type of the JAX package: DENSE and SWA (sliding-window)
+layers, MOE (GQA attention and the mixture-of-experts FFN), MLA_DENSE
+and MLA_MOE (multi-head latent attention, whose caches hold the latents
+``c_kv`` and ``k_rope``), HYMBA and HYMBA_GLOBAL (windowed or full
+attention in parallel with a Mamba head, whose states ``conv`` and ``h``
+sit beside the K/V), and xLSTM's MLSTM and SLSTM (recurrent states
+only: ``conv``, ``C``, ``n``, ``m``; ``c``, ``n``, ``m``, ``h``).
 
 ``apply_layer`` runs in two modes:
   * mode="full":   x (B, S, d), positions (B, S) — prefill; fills
@@ -19,8 +21,9 @@ an explicit per-slot absolute-position array (keys are roped when they
 are written, so RoPE stays consistent across the ring's wraparound).
 
 Where the JAX package returns a new cache, these functions write the new
-K/V (and ring positions) **in place** into the tensors of the cache dict
-they are given, and return that dict.  JAX drops the ring writes of all
+K/V, ring positions and recurrent states **in place** into the tensors
+of the cache dict they are given, cast to the cache's dtype, and return
+that dict.  JAX drops the ring writes of all
 but the last ``window`` prompt tokens with ``mode="drop"``; here only
 those last ``window`` rows are selected and written.
 """
@@ -30,32 +33,35 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.device import resolve_device
 from repro_torch.models import config as C
-from repro_torch.models import layers, mla, moe
+from repro_torch.models import layers, mla, moe, ssm
 
-UNPORTED = {
-    C.HYMBA: "C1b (Hymba, models/ssm.py)",
-    C.HYMBA_GLOBAL: "C1b (Hymba, models/ssm.py)",
-    C.MLSTM: "C1b (xLSTM, models/ssm.py)",
-    C.SLSTM: "C1b (xLSTM, models/ssm.py)",
-}
+LAYER_TYPES = (C.DENSE, C.SWA, C.MOE, C.MLA_DENSE, C.MLA_MOE, C.HYMBA,
+               C.HYMBA_GLOBAL, C.MLSTM, C.SLSTM)
+# the recurrent states, which ``alloc_cache`` keeps in float32
+STATE_FIELDS = ("C", "n", "m", "h", "c")
 
 
-def _check_ported(cfg: C.ModelConfig, ltype: str) -> None:
-    if ltype in UNPORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: layer type {ltype!r} is not ported yet (ROADMAP "
-            f"{UNPORTED[ltype]})")
-    if ltype not in (C.DENSE, C.SWA, C.MOE, C.MLA_DENSE, C.MLA_MOE):
+def _check_type(ltype: str) -> None:
+    if ltype not in LAYER_TYPES:
         raise ValueError(f"unknown layer type {ltype}")
 
 
 # ------------------------------------------------------------------ specs
 def layer_specs(cfg: C.ModelConfig, ltype: str) -> dict:
-    _check_ported(cfg, ltype)
+    _check_type(ltype)
     d = cfg.d_model
     ln = layers.norm_spec(d)
+    if ltype in (C.HYMBA, C.HYMBA_GLOBAL):
+        return {"ln1": ln, "attn": layers.attn_specs(cfg),
+                "mamba": ssm.mamba_specs(cfg),
+                "ln2": ln, "mlp": layers.mlp_specs(d, cfg.d_ff)}
+    if ltype == C.MLSTM:
+        return {"ln1": ln, "mlstm": ssm.mlstm_specs(cfg)}
+    if ltype == C.SLSTM:
+        f = int(cfg.xlstm.slstm_proj_factor * d)
+        return {"ln1": ln, "slstm": ssm.slstm_specs(cfg),
+                "ln2": ln, "mlp": layers.mlp_specs(d, f)}
     mixer = ({"mla": mla.mla_specs(cfg)} if ltype in C.MLA_LAYER_TYPES
              else {"attn": layers.attn_specs(cfg)})
     if ltype in (C.MOE, C.MLA_MOE):
@@ -87,32 +93,40 @@ def _window_cache(cfg, batch) -> Dict[str, Tuple[tuple, tuple]]:
 def cache_shape(cfg: C.ModelConfig, ltype: str, batch: int,
                 cache_len: int) -> Dict[str, Tuple[tuple, tuple]]:
     """dict of cache field -> ((shape), (logical axes))."""
-    _check_ported(cfg, ltype)
+    _check_type(ltype)
     if ltype in (C.DENSE, C.MOE):
         return _kv_cache(cfg, batch, cache_len)
+    if ltype == C.SWA:
+        return _window_cache(cfg, batch)
     if ltype in C.MLA_LAYER_TYPES:
         m = cfg.mla
         return {"c_kv": ((batch, cache_len, m.kv_lora_rank),
                          ("batch", "cache_seq", None)),
                 "k_rope": ((batch, cache_len, m.qk_rope_head_dim),
                            ("batch", "cache_seq", None))}
-    return _window_cache(cfg, batch)
+    if ltype == C.HYMBA:
+        return {**_window_cache(cfg, batch),
+                **ssm.mamba_state_shape(cfg, batch)}
+    if ltype == C.HYMBA_GLOBAL:
+        return {**_kv_cache(cfg, batch, cache_len),
+                **ssm.mamba_state_shape(cfg, batch)}
+    if ltype == C.MLSTM:
+        return ssm.mlstm_state_shape(cfg, batch)
+    return ssm.slstm_state_shape(cfg, batch)
 
 
 def alloc_cache(shapes: Dict[str, Tuple[tuple, tuple]], dtype,
                 device) -> dict:
-    """Zeroed K/V of ``dtype`` and ring positions of -1 (int32)."""
+    """Zeroed fields: ring positions of -1 (int32), the recurrent states
+    (``STATE_FIELDS``) in float32, as the JAX package's
+    ``models.model.init_cache`` keeps them, the rest (K/V, latents, conv
+    buffers) in ``dtype``."""
+    def zeros(name, shape):
+        dt = torch.float32 if name in STATE_FIELDS else dtype
+        return torch.zeros(shape, dtype=dt, device=device)
     return {name: (torch.full(shape, -1, dtype=torch.int32, device=device)
-                   if name == "pos" else
-                   torch.zeros(shape, dtype=dtype, device=device))
+                   if name == "pos" else zeros(name, shape))
             for name, (shape, _axes) in shapes.items()}
-
-
-def init_cache(cfg: C.ModelConfig, ltype: str, batch: int, cache_len: int,
-               dtype=torch.float32, device=None) -> dict:
-    """One layer's cache on ``device`` (the card unless one is named)."""
-    return alloc_cache(cache_shape(cfg, ltype, batch, cache_len), dtype,
-                       resolve_device(device))
 
 
 # ------------------------------------------------------------------ attention paths
@@ -167,6 +181,15 @@ def _attn_decode(p, cfg, x, positions, cache, window: int):
 
 
 # ------------------------------------------------------------------ apply
+def _store(cache: Optional[dict], new: dict) -> None:
+    """Write new recurrent states into the cache's tensors, in place,
+    cast to the cache's dtype (the reference's scan writes them back as
+    ``new.astype(cache.dtype)``)."""
+    if cache is not None:
+        for name, t in new.items():
+            cache[name].copy_(t)
+
+
 def apply_layer(p: dict, cfg: C.ModelConfig, ltype: str, x: torch.Tensor,
                 positions: torch.Tensor, cache: Optional[dict], mode: str,
                 impl: str = "kernel"
@@ -175,21 +198,56 @@ def apply_layer(p: dict, cfg: C.ModelConfig, ltype: str, x: torch.Tensor,
     """Residual block.  Returns (x, cache, routing): the MoE FFN's
     routing, from which ``moe.aux_losses`` computes the reference's
     auxiliary losses, None for the other layers.  ``impl`` routes the
-    full-mode GQA attention: "kernel" to the ``flash_prefill`` kernel,
-    "ref" to its plain version (both for serving), "train" to the
-    trainer's differentiable ``layers.attn_causal_plain``, the JAX
-    package's ``attn_causal`` (MLA has no kernel and always takes it)."""
-    _check_ported(cfg, ltype)
+    full-mode GQA attention (Hymba's included): "kernel" to the
+    ``flash_prefill`` kernel, "ref" to its plain version (both for
+    serving), "train" to the trainer's differentiable
+    ``layers.attn_causal_plain``, the JAX package's ``attn_causal``
+    (MLA has no kernel and always takes it)."""
+    _check_type(ltype)
     if mode not in ("full", "decode"):
         raise ValueError(f"mode must be 'full' or 'decode', got {mode!r}")
+    full = mode == "full"
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     if ltype in C.MLA_LAYER_TYPES:
-        mix = mla.mla_full if mode == "full" else mla.mla_decode
+        mix = mla.mla_full if full else mla.mla_decode
         a, cache = mix(p["mla"], cfg, h, positions, cache,
                        absorb=cfg.mla_absorb)
+    elif ltype in (C.HYMBA, C.HYMBA_GLOBAL):
+        window = cfg.sliding_window if ltype == C.HYMBA else 0
+        attn_cache = state = None
+        if cache is not None:
+            attn_cache = {k: cache[k] for k in ("k", "v", "pos")
+                          if k in cache}
+            state = {k: cache[k] for k in ("conv", "h")}
+        if full:
+            a, _ = _attn_full(p["attn"], cfg, h, positions, attn_cache,
+                              window, impl)
+            m_out, new = ssm.mamba_seq(p["mamba"], cfg, h,
+                                       state or _fresh_mamba(cfg, h))
+        else:
+            a, _ = _attn_decode(p["attn"], cfg, h, positions, attn_cache,
+                                window)
+            m_out, new = ssm.mamba_step(p["mamba"], cfg, h[:, 0], state)
+            m_out = m_out[:, None, :]
+        _store(cache, new)
+        a = 0.5 * (a + m_out)
+    elif ltype in (C.MLSTM, C.SLSTM):
+        name, fresh = (("mlstm", _fresh_mlstm) if ltype == C.MLSTM
+                       else ("slstm", _fresh_slstm))
+        seq, step = ((ssm.mlstm_seq, ssm.mlstm_step) if ltype == C.MLSTM
+                     else (ssm.slstm_seq, ssm.slstm_step))
+        st = cache if cache else fresh(cfg, h)
+        if full:
+            a, new = seq(p[name], cfg, h, st)
+        else:
+            a, new = step(p[name], cfg, h[:, 0], st)
+            a = a[:, None, :]
+        _store(cache, new)
+        if ltype == C.MLSTM:
+            return x + a, cache, None             # no FFN sublayer
     else:
         window = cfg.sliding_window if ltype == C.SWA else 0
-        if mode == "full":
+        if full:
             a, cache = _attn_full(p["attn"], cfg, h, positions, cache,
                                   window, impl)
         else:
@@ -201,3 +259,18 @@ def apply_layer(p: dict, cfg: C.ModelConfig, ltype: str, x: torch.Tensor,
         f, routing, _ = moe.moe_ffn(p["moe"], cfg.moe, h, cfg.act)
         return x + f, cache, routing
     return x + layers.mlp(p["mlp"], h, cfg.act), cache, None
+
+
+def _fresh_mamba(cfg, x):
+    return alloc_cache(ssm.mamba_state_shape(cfg, x.shape[0]), x.dtype,
+                       x.device)
+
+
+def _fresh_mlstm(cfg, x):
+    return alloc_cache(ssm.mlstm_state_shape(cfg, x.shape[0]),
+                       torch.float32, x.device)
+
+
+def _fresh_slstm(cfg, x):
+    return alloc_cache(ssm.slstm_state_shape(cfg, x.shape[0]),
+                       torch.float32, x.device)

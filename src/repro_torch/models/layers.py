@@ -2,8 +2,8 @@
 ``repro/models/layers.py``: norms, RoPE, masks, GQA attention (dense,
 causal/windowed through the ``flash_prefill`` kernel, and the plain
 causal path with ``_blockwise`` that the trainer and MLA call),
-projections and the gated MLP.  ``mlstm_parallel`` (xLSTM) is not
-ported yet.
+``mlstm_parallel`` (xLSTM's parallel form, ``_blockwise``'s mLSTM
+norm), projections and the gated MLP.
 
 Plain functions on tensors; parameters arrive as dicts built from
 ``repro_torch.models.params.Spec`` trees in ``repro``'s layouts
@@ -21,6 +21,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.params import Spec
+from repro_torch.tree import tree_leaves
 
 
 # ---------------------------------------------------------------- norms
@@ -160,11 +161,40 @@ def attn_causal_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       block_q=block_q, block_k=block_k)
 
 
-def _blockwise(q, k, v, *, scale, window=0, softcap=0.0, block_q=512,
-               block_k=512):
-    """``repro.models.layers._blockwise`` with the softmax norm: every
-    (q block, k block) pair is visited in order, as the reference's
-    scans do, with the running max, sum and accumulator in float32.
+def mlstm_parallel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   bias_q: torch.Tensor, bias_k: torch.Tensor,
+                   block_q: int = 512, block_k: int = 512) -> torch.Tensor:
+    """Parallel (quadratic) mLSTM form: gate-biased blockwise attention
+    with signed-sum normalization (xLSTM eq. 25-27).  bias_q = F_t
+    (cumulative log-forget), bias_k = i_s - F_s; entry bias = F_t-F_s+i_s.
+    k must arrive pre-scaled by 1/sqrt(dh) (as in the recurrent form).
+    q, k, v: (B, S, H, dh); bias_q, bias_k: (B, S, H)."""
+    return _blockwise(q, k, v, scale=1.0, norm="mlstm", bias_q=bias_q,
+                      bias_k=bias_k, block_q=block_q, block_k=block_k)
+
+
+def recording(*trees) -> bool:
+    """Whether autograd records through a tensor among ``trees``: then a
+    blockwise sweep or a scan's chunk runs under
+    ``torch.utils.checkpoint``, as the reference rematerializes it."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad
+        for t in tree_leaves(trees))
+
+
+def _blockwise(q, k, v, *, scale, window=0, softcap=0.0, norm="softmax",
+               bias_q=None, bias_k=None, block_q=512, block_k=512):
+    """``repro.models.layers._blockwise``: every (q block, k block) pair
+    is visited in order, as the reference's scans do, with the running
+    max, sum and accumulator in float32.
+
+    ``norm="softmax"``: an online softmax of the (optionally capped)
+    logits.  ``norm="mlstm"``: each entry's weight is its logit times
+    ``exp(bias_q[t] + bias_k[s] - m)``, signed, where the running max
+    ``m`` is taken over the masked bias, not the logits; the sum is
+    normalized by ``max(|l|, 1)``.  Padded keys carry ``bias_k =
+    NEG_INF``, padded queries ``bias_q = 0``.
+
     While autograd records, each q block's sweep runs under
     ``torch.utils.checkpoint`` and is recomputed in the backward, as the
     reference rematerializes it: otherwise the backward would keep the
@@ -175,14 +205,19 @@ def _blockwise(q, k, v, *, scale, window=0, softcap=0.0, block_q=512,
     g = h // hkv
     if scale is None:
         scale = d ** -0.5
+    mlstm = norm == "mlstm"
     bq, bk = min(block_q, sq), min(block_k, sk)
     sq_p, sk_p = -(-sq // bq) * bq, -(-sk // bk) * bk
     q = F.pad(q, (0, 0, 0, 0, 0, sq_p - sq))
     k = F.pad(k, (0, 0, 0, 0, 0, sk_p - sk))
     v = F.pad(v, (0, 0, 0, 0, 0, sk_p - sk))
+    if mlstm:
+        bias_q = F.pad(bias_q.float(), (0, 0, 0, sq_p - sq))
+        bias_k = F.pad(bias_k.float(), (0, 0, 0, sk_p - sk), value=NEG_INF)
+        bias_q = bias_q.reshape(b, sq_p, hkv, g)
     dev = q.device
 
-    def sweep(q_blk, k, v, qi):
+    def sweep(q_blk, bq_blk, k, v, bias_k, qi):
         q32 = q_blk.float().reshape(b, bq, hkv, g, d) * scale
         qpos = qi * bq + torch.arange(bq, device=dev)
         acc = torch.zeros(b, hkv, g, bq, dv, device=dev)
@@ -198,23 +233,36 @@ def _blockwise(q, k, v, *, scale, window=0, softcap=0.0, block_q=512,
             mask = (kpos[None, :] <= qpos[:, None]) & (kpos[None, :] < sk)
             if window:
                 mask &= kpos[None, :] > qpos[:, None] - window
-            score = logits.masked_fill(~mask, NEG_INF)
-            m_new = torch.maximum(m, score.amax(-1))
+            if mlstm:
+                bk_blk = bias_k[:, ki * bk:(ki + 1) * bk]      # (b, bk, hkv)
+                bias = (bq_blk.permute(0, 2, 3, 1)[..., :, None]
+                        + bk_blk.permute(0, 2, 1)[:, :, None, None, :])
+                bias = bias.masked_fill(~mask, NEG_INF)
+                m_new = torch.maximum(m, bias.amax(-1))
+                p = (logits * torch.exp(bias - m_new[..., None])
+                     ).masked_fill(~mask, 0.0)
+            else:
+                score = logits.masked_fill(~mask, NEG_INF)
+                m_new = torch.maximum(m, score.amax(-1))
+                p = torch.exp(score - m_new[..., None]).masked_fill(~mask,
+                                                                    0.0)
             alpha = torch.exp(m - m_new)
-            p = torch.exp(score - m_new[..., None]).masked_fill(~mask, 0.0)
             den = den * alpha + p.sum(-1)
             acc = acc * alpha[..., None] + torch.einsum(
                 "bhgqk,bkhd->bhgqd", p, v32)
             m = m_new
+        if mlstm:
+            return acc / torch.clamp(den.abs(), min=1.0)[..., None]
         return acc / torch.clamp(den, min=1e-30)[..., None]
 
-    remat = torch.is_grad_enabled() and any(
-        t.requires_grad for t in (q, k, v))
+    remat = recording(q, k, v, bias_q, bias_k)
     outs = []
     for qi in range(sq_p // bq):
-        q_blk = q[:, qi * bq:(qi + 1) * bq]
-        outs.append(checkpoint(sweep, q_blk, k, v, qi, use_reentrant=False)
-                    if remat else sweep(q_blk, k, v, qi))
+        rows = slice(qi * bq, (qi + 1) * bq)
+        args = (q[:, rows], bias_q[:, rows] if mlstm else None, k, v,
+                bias_k, qi)
+        outs.append(checkpoint(sweep, *args, use_reentrant=False)
+                    if remat else sweep(*args))
     out = torch.stack(outs)                      # (nq, b, hkv, g, bq, dv)
     out = out.permute(1, 0, 4, 2, 3, 5).reshape(b, sq_p, h, dv)
     return out[:, :sq].to(q.dtype)

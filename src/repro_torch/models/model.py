@@ -1,6 +1,6 @@
 """Decoder-only model over run-grouped layers, the PyTorch counterpart of
-``repro/models/model.py`` for the layer types ported so far (DENSE, SWA,
-MOE, MLA_DENSE and MLA_MOE, see ``blocks``), codebook streams included.
+``repro/models/model.py`` for every layer type (see ``blocks``), codebook
+streams included.
 
 The parameter tree keeps ``repro``'s layout — ``embedding`` ((V, d), or
 (K, V, d) for K codebooks), one stacked ``run_<i>`` per run of identical
@@ -93,7 +93,8 @@ def cache_struct(cfg: C.ModelConfig, batch: int, cache_len: int):
 def init_cache(cfg: C.ModelConfig, batch: int, cache_len: int,
                dtype=torch.float32, device=None) -> List[dict]:
     """Stacked caches for every run on ``device`` (the card unless one is
-    named)."""
+    named): K/V, latents and conv buffers in ``dtype``, the recurrent
+    states (``blocks.STATE_FIELDS``) in float32, as in the JAX package."""
     device = resolve_device(device)
     return [blocks.alloc_cache(run, dtype, device)
             for run in cache_struct(cfg, batch, cache_len)]

@@ -186,12 +186,6 @@ def test_slot_engine_rejects_oversized():
     assert not eng.has_work
 
 
-@pytest.mark.parametrize("arch", ["xlstm-1.3b", "hymba-1.5b"])
-def test_slot_engine_refuses_unported_layer_types(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SlotEngine(get_reduced_config(arch), device="cpu")
-
-
 def test_slot_engine_refuses_temperature():
     """Refused before sampling was ported; a request at temperature > 0
     is now served (its tokens are held to the JAX slot engine's in

@@ -5,7 +5,9 @@
 and batches (numpy seeds, carried across by the bridge) for reduced
 qwen3-0.6b (dense), gemma3-4b (a sliding window of 64 under a 96-token
 sequence), granite-moe-3b-a800m (MoE, aux losses), deepseek-v2 (MLA and
-MoE) and musicgen-large (codebooks), with remat off and on, on the
+MoE), musicgen-large (codebooks), hymba-1.5b (windowed and full
+attention beside Mamba) and xlstm-1.3b (mLSTM's parallel form, sLSTM's
+scan), with remat off and on, on the
 unchunked and the chunked cross-entropy paths: loss within 1e-5
 relative, each gradient leaf within 1e-4 of the leaf's max |g|.  Then
 the trainer's attention (window, softcap, the blockwise path against the
@@ -54,7 +56,7 @@ from repro_torch.tree import (tree_flatten, tree_leaves,  # noqa: E402
                               tree_map, tree_unflatten)
 
 ARCHS = ("qwen3-0.6b", "gemma3-4b", "granite-moe-3b-a800m",
-         "deepseek-v2-236b", "musicgen-large")
+         "deepseek-v2-236b", "musicgen-large", "hymba-1.5b", "xlstm-1.3b")
 B, S = 2, 96                    # S > gemma3's reduced window of 64
 LOSS_RTOL, GRAD_TOL = 1e-5, 1e-4
 OPT = dict(lr=1e-3, warmup_steps=2, total_steps=6, grad_clip=0.5)
@@ -103,10 +105,24 @@ def _jax_params(jcfg, seed=0):
     return jax.tree.map(np.asarray, JM.init(jcfg, jax.random.PRNGKey(seed)))
 
 
+# Leaves the loss does not depend on.  mLSTM's parallel form adds the
+# input gate's bias to every key's weight of its head, and the
+# stabilized weights exp(bias - max bias) cancel any such constant, so
+# both packages' gradients of ``igate_b`` are rounding noise (~1e-9):
+# they are held to be negligible against the tree's largest gradient.
+INVARIANT = ("/run_0/mlstm/igate_b",)
+INVARIANT_TOL = 1e-6
+
+
 def _assert_grads_close(got, want, tol=GRAD_TOL):
     got, want = _flat(got), _flat(want)
     assert set(got) == set(want)
+    top = max(np.abs(w).max() for w in want.values())
     for path, w in want.items():
+        if path in INVARIANT:
+            assert max(np.abs(w).max(), np.abs(got[path]).max()) \
+                <= INVARIANT_TOL * top, path
+            continue
         scale = np.abs(w).max()
         assert scale > 0, f"{path}: zero gradient in the reference"
         assert np.abs(got[path]).max() > 0, f"{path}: zero gradient"
