@@ -148,6 +148,25 @@ Phases, each printing one JSON line:
             attention's forward and backward against the dense path
             (1e-4), each one's peak memory and wall.  No hand-written
             kernel launches in the whole phase;
+   sim      the cluster simulator, the diagnostics and the analytic
+            roofline of the port (``core/sim``, ``core/diagnostics``,
+            ``launch/analytic.py``): (a) the planner's ``h100`` entry
+            fitted from full-width bf16 qwen3-0.6b serves (MFU from a
+            4 x 512-token prefill batch, MBU from the median step in
+            which 8 rows decode), the copied ``PerfModel`` reproducing
+            the fitted points, its prediction against the measured time
+            at a second point (one 2048-token prompt, 8 rows near context
+            700), the analytic roofline's bound beside each; (b) the
+            ``ServingCluster`` on the fitted h100 and on the a10:
+            birdsql-like traffic, a thermal throttle on engine-1 (the
+            monitor must diagnose it), an engine crash (no request
+            lost); the GPU optimizer over a10, l20 and h100; (c) crash
+            recovery through the diagnostics around two real float32
+            engines sharing a pool: the monitor must answer
+            ``DEVICE_LOST`` with ``restart``, the harvested requests
+            resume on the second engine from the recovery log with a
+            lone engine's tokens, remote hits equal to the logged
+            coverage, no page leaked, exact kernel launches;
 11. timing  each kernel, its plain version, the library call and the
             least time the card could take, at the serving shapes (also
             at granite's G 3 for the paged kernels, and
@@ -298,6 +317,25 @@ TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL, TRAIN_ACCUM_RTOL = 1e-5, 1e-4, 1e-4
 REMAT_RTOL = 1e-5
 # (f) the blockwise attention (Sq*Sk > 2048**2): one sequence this long
 BLOCKWISE_SEQ = 4096
+# the sim phase.  (a) The planner's h100 entry fitted from full-width
+# bf16 qwen3-0.6b serves on the serve phase's engine, with room for one
+# 2048-token prompt: MFU from a prefill-only batch of 4 x 512 tokens,
+# MBU from the median step in which all 8 rows decode (prompts of 128,
+# 64 new tokens); the second point: one 2048-token prompt, and 8 rows
+# at contexts near 700.  (b) The cluster simulator on the fitted card:
+# birdsql-like traffic, engine-1 throttled, an engine crash; engines
+# sized as the real one.  (c) Crash recovery around two real float32
+# engines: 4 requests, the crash once each has 24 tokens and a
+# checkpointed generated page
+SIM_ECFG = dict(SERVE_ECFG, max_pages_per_seq=160)
+SIM_FIT_PREFILL, SIM_FIT_DECODE = (4, 512), (8, 128, 64)
+SIM_CHECK_PREFILL, SIM_CHECK_DECODE = (1, 2048), (8, 680, 40)
+SIM_CLUSTER = dict(requests=400, rate_rps=8.0, engines=4, throttle_at=10.0,
+                   crash_at=20.0)
+SIM_ENGINE = dict(page_size=16, max_batch=8, chunk_size=64,
+                  mixed_batching=True, ckpt_interval_tokens=64)
+SIM_RECOVER_REQUESTS, SIM_RECOVER_PROMPTS = 4, (100, 300)
+SIM_RECOVER_NEW, SIM_CRASH_AFTER = 48, 24
 # full-width f32 step: kernel logits vs plain logits, relative to the
 # logits' scale.  The two differ only in the order of the attention's
 # float32 sums (~1e-6 relative per call); 28 layers of residual updates
@@ -731,19 +769,31 @@ def full_width_step(torch, cfg):
 
 
 # ------------------------------------------------------------ serving
-def counted(torch, eng, pa, pp, drive):
+def counted(torch, eng, pa, pp, drive, steps=None):
     """Run ``drive()`` on ``eng`` with the paged kernels' counts set to 0
     just before and read just after; returns the steps by mode (an async
     loop's overlapped decode dispatch as ``async_decode``), the
     launches, and the launches expected: one a layer for each step that
-    needs the kernel."""
+    needs the kernel.  Given a list ``steps``, each executed step is
+    also timed between two synchronizes and the list gains ``(mode,
+    decode rows, their mean context, seconds)`` (a row's context: the
+    tokens it attends to).  The hooks are taken off afterwards."""
     modes = {"decode": 0, "prefill": 0, "mixed": 0, "idle": 0,
              "async_decode": 0}
     exec_, dispatch = eng._exec, eng._dispatch_async
 
     def recording_exec(out):
         modes[out.mode] += 1
-        return exec_(out)
+        if steps is None:
+            return exec_(out)
+        ctx = [r.prompt_len + len(r.output_tokens) for r in out.decode]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = exec_(out)
+        torch.cuda.synchronize()
+        steps.append((out.mode, len(ctx), sum(ctx) / max(len(ctx), 1),
+                      time.perf_counter() - t0))
+        return n
 
     def recording_dispatch(reqs):
         modes["async_decode"] += 1
@@ -755,7 +805,7 @@ def counted(torch, eng, pa, pp, drive):
     drive()
     torch.cuda.synchronize()
     launches = {"paged_attention": pa.launches, "paged_prefill": pp.launches}
-    eng._exec, eng._dispatch_async = exec_, dispatch
+    del eng._exec, eng._dispatch_async      # back to the class's methods
     n = eng.cfg.n_layers
     want = {"paged_attention": n * (modes["decode"] + modes["mixed"]
                                     + modes["async_decode"]),
@@ -2700,6 +2750,309 @@ def train_blockwise(torch, cfg, full):
     del res, q, k, v, cot, mask
 
 
+# ------------------------------------------------------------ sim
+def sim_fit(torch, cfg, pa, pp):
+    """The sim phase (a): the planner's ``h100`` entry fitted from the
+    port's own full-width bf16 serves.  ``mfu_prefill`` from a
+    prefill-only batch and ``mbu_decode`` from the median step in which
+    every row decodes, each by inverting the copied ``PerfModel``'s
+    ``prefill_time`` and ``decode_step_time`` with its own parameter
+    and KV byte counts, so that ``PerfModel(cfg, spec)`` reproduces the
+    fitted points (checked); then the model's prediction at a second
+    point against the measured time, and the analytic roofline's bound
+    beside each.  Every serve runs under ``counted``, whose hook times
+    the steps; the paged kernels must launch once a layer for each step
+    that needs them.  Returns the fitted ``DeviceSpec`` and the
+    launches."""
+    import math
+    import statistics
+
+    import numpy as np
+    from repro_torch.core.optimizer import h100
+    from repro_torch.core.optimizer.profiles import PerfModel
+    from repro_torch.engine import (EngineConfig, InferenceEngine, Request,
+                                    SamplingParams)
+    from repro_torch.launch import analytic
+    eng = InferenceEngine(cfg, EngineConfig(**SIM_ECFG), seed=0,
+                          device="cuda")
+    steps = []
+    launches = {"paged_attention": 0, "paged_prefill": 0}
+    want = dict(launches)
+    rng = np.random.default_rng(21)
+
+    def serve(n, prompt, max_new):
+        reqs = [greedy(Request, SamplingParams, rng.integers(
+            0, cfg.vocab_size, prompt).tolist(), max_new) for _ in range(n)]
+
+        def drive():
+            for r in reqs:
+                eng.submit(r)
+            eng.run_until_idle()
+        steps.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, got, expected = counted(torch, eng, pa, pp, drive, steps)
+        wall = time.perf_counter() - t0
+        for k in launches:
+            launches[k] += got[k]
+            want[k] += expected[k]
+        if not all(len(r.output_tokens) == max_new for r in reqs):
+            raise AssertionError("sim_fit: a request did not finish")
+        return wall, list(steps)
+
+    def decode(rows, prompt, max_new):
+        _, st = serve(rows, prompt, max_new)
+        full = [(ctx, s) for mode, n, ctx, s in st
+                if mode == "decode" and n == rows]
+        return (statistics.median(s for _, s in full),
+                statistics.median(c for c, _ in full), len(full))
+
+    def bound_ms(kind, batch, seq):
+        t = analytic.roofline_terms(analytic.estimate(cfg, kind, batch,
+                                                      seq), 0.0, 1)
+        return 1e3 * max(t["compute_s"], t["memory_s"])
+
+    serve(2, 64, 4)                                  # warm-up
+    (n_pre, s_pre), (rows, s_dec, new) = SIM_FIT_PREFILL, SIM_FIT_DECODE
+    t_pre, pre_steps = serve(n_pre, s_pre, 1)
+    t_dec, ctx, n_full = decode(rows, s_dec, new)
+    pm = PerfModel(cfg, h100.h100_spec())
+    mfu = 2.0 * pm.n_active * n_pre * s_pre / (analytic.PEAK_FLOPS * t_pre)
+    mbu = ((pm.param_bytes + rows * pm.kv_bytes_per_token * ctx)
+           / (analytic.HBM_BW * t_dec))
+    spec = h100.h100_spec(mfu_prefill=mfu, mbu_decode=mbu)
+    fitted = PerfModel(cfg, spec)
+    reproduced = (
+        math.isclose(fitted.prefill_time(n_pre * s_pre), t_pre,
+                     rel_tol=1e-9)
+        and math.isclose(fitted.decode_step_time(rows, ctx), t_dec,
+                         rel_tol=1e-9))
+    (n2, s2), (rows2, s_dec2, new2) = SIM_CHECK_PREFILL, SIM_CHECK_DECODE
+    t_pre2, pre2_steps = serve(n2, s2, 1)
+    t_dec2, ctx2, n_full2 = decode(rows2, s_dec2, new2)
+    points = [
+        dict(point="fit", kind="prefill", prompts=n_pre, tokens=s_pre,
+             steps=len(pre_steps), measured_ms=1e3 * t_pre,
+             predicted_ms=1e3 * fitted.prefill_time(n_pre * s_pre),
+             roofline_bound_ms=bound_ms("prefill", n_pre, s_pre)),
+        dict(point="fit", kind="decode", rows=rows, context=ctx,
+             steps=n_full, measured_ms=1e3 * t_dec,
+             predicted_ms=1e3 * fitted.decode_step_time(rows, ctx),
+             roofline_bound_ms=bound_ms("decode", rows, round(ctx))),
+        dict(point="check", kind="prefill", prompts=n2, tokens=s2,
+             steps=len(pre2_steps), measured_ms=1e3 * t_pre2,
+             predicted_ms=1e3 * fitted.prefill_time(n2 * s2),
+             roofline_bound_ms=bound_ms("prefill", n2, s2)),
+        dict(point="check", kind="decode", rows=rows2, context=ctx2,
+             steps=n_full2, measured_ms=1e3 * t_dec2,
+             predicted_ms=1e3 * fitted.decode_step_time(rows2, ctx2),
+             roofline_bound_ms=bound_ms("decode", rows2, round(ctx2)))]
+    ok = (reproduced and n_full > 0 and n_full2 > 0 and launches == want
+          and min(launches.values()) > 0)
+    emit("sim_fit", model=cfg.name, dtype=SIM_ECFG["dtype"],
+         mfu_prefill=mfu, mbu_decode=mbu,
+         catalogue_default=dict(mfu_prefill=0.55, mbu_decode=0.70),
+         fit_reproduced=reproduced, points=points, launches=launches,
+         expected_launches=want, card=nvidia_smi(), ok=ok)
+    del eng
+    gc.collect()        # the engine's scheduler holds its bound methods
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("sim_fit failed its checks")
+    return spec, launches
+
+
+def sim_cluster(torch, cfg, spec):
+    """The sim phase (b): the port's cluster simulator on the fitted
+    ``h100`` and on the catalogue's ``a10``: a thermal throttle injected
+    on engine-1 as ``examples/serve_cluster.py`` injects it, and an
+    engine crash with recovery from the recovery log.  Every request
+    finishes or is rejected, the monitor diagnoses the throttled pod, the
+    crash loses no request.  Then the GPU optimizer over a10, l20 and
+    the fitted h100 for ``examples/hetero_optimizer.py``'s demand."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.diagnostics import FaultKind
+    from repro_torch.core.optimizer import (GPUOptimizer, ProfileTable,
+                                            homogeneous_cost, h100)
+    from repro_torch.core.sim import (ClusterConfig, ServingCluster,
+                                      SimEngineConfig)
+    from repro_torch.core.sim.chaos import ChaosSchedule
+    from repro_torch.core.sim.workloads import birdsql_like
+    h100.register(spec)
+    keys = load_example("torch_serve_cluster").SUMMARY_KEYS
+    c = SIM_CLUSTER
+    runs = {}
+    for device in ("h100", "a10"):
+        cluster = ServingCluster(cfg, ClusterConfig(
+            routing_policy="prefix-load", device_type=device,
+            num_engines=c["engines"], use_kv_pool=True, telemetry=True,
+            chaos=ChaosSchedule.engine_crash(at=c["crash_at"]),
+            engine=SimEngineConfig(device_type=device, **SIM_ENGINE)))
+        cluster.loop.after(c["throttle_at"], lambda cl=cluster: (
+            cl.injector.inject("engine-1", FaultKind.THERMAL_THROTTLE,
+                               c["throttle_at"], severity=0.8)))
+        t0 = time.perf_counter()
+        s = cluster.run(birdsql_like(c["requests"], rate_rps=c["rate_rps"],
+                                     seed=7))
+        host_s = time.perf_counter() - t0
+        throttled = [(d.t, d.action) for d in cluster.diagnoses
+                     if d.pod_id == "engine-1"
+                     and d.fault is FaultKind.THERMAL_THROTTLE]
+        ok = (s["finished"] + s["rejected"] == c["requests"]
+              and bool(throttled) and s["crashed_requests"] > 0
+              and s["crash_recovered"] == s["crashed_requests"])
+        runs[device] = dict(
+            ok=ok, host_s=host_s, throttle_diagnoses=throttled,
+            summary={k: s.get(k, 0) for k in keys + (
+                "crashed_requests", "crash_recovered", "quarantines",
+                "diagnoses", "ckpt_pages")},
+            diagnoses=[(d.pod_id, d.t, d.fault.value, d.action)
+                       for d in cluster.diagnoses])
+        del cluster
+    demand = load_example("torch_hetero_optimizer").demand()
+    table = ProfileTable(get_config("deepseek-coder-7b"), slo_ttft_s=5.0,
+                         slo_itl_s=0.25)
+    devices = ("a10", "l20", "h100")
+    alloc = GPUOptimizer(table, devices).optimize(demand)
+    n_h, c_h = homogeneous_cost(table, demand, "h100")   # inf: no fit
+    ok = all(r["ok"] for r in runs.values())
+    emit("sim_cluster", model=cfg.name, requests=c["requests"],
+         rate_rps=c["rate_rps"], engines=c["engines"], h100=dict(
+             mfu_prefill=spec.mfu_prefill, mbu_decode=spec.mbu_decode,
+             cost_per_hour=spec.cost_per_hour), runs=runs,
+         optimizer=dict(model="deepseek-coder-7b", devices=devices,
+                        counts=alloc.counts,
+                        cost_per_hour=alloc.cost_per_hour,
+                        note=alloc.note, assignment=[
+                            [list(b), dev, rps] for (b, dev), rps
+                            in sorted(alloc.assignment.items())],
+                        homogeneous_h100=[n_h, c_h if c_h < float("inf")
+                                          else None]), ok=ok)
+    if not ok:
+        raise AssertionError("sim_cluster failed its checks")
+
+
+def sim_recover(torch, cfg, pa, pp):
+    """The sim phase (c): the diagnostics -> remediation chain around two
+    real full-width float32 qwen3-0.6b engines, A and B, that share a
+    ``DistributedKVPool`` and log every full page (the recovery log).
+    After each of A's steps a ``DiagnosticMonitor`` observes a
+    ``Telemetry`` sample of A's own token rate through a
+    ``FailureInjector``.  Once every request has decoded past a
+    checkpointed page, ``DEVICE_LOST`` is injected on A; the monitor's
+    diagnosis must be ``restart``, on which the harness calls
+    ``A.sched.crash_takeover`` (as ``ServingCluster._remediate`` does for
+    a dead pod) and submits the harvested requests to B.  Each output
+    must equal a lone uncrashed engine's, B's remote hits the
+    checkpointed coverage, its ``crash_resumes`` the number resumed, no
+    page leaked on B, and the paged kernels launched exactly once a
+    layer for each step that needs them.  Returns the launches of A's
+    steps and B's (``counted`` around each)."""
+    import numpy as np
+    from repro_torch.core.diagnostics import (DiagnosticMonitor,
+                                              FailureInjector, FaultKind,
+                                              Telemetry)
+    from repro_torch.core.kvcache.pool import DistributedKVPool
+    from repro_torch.engine import (EngineConfig, InferenceEngine, Request,
+                                    SamplingParams)
+    f32 = dict(SERVE_ECFG, dtype="float32")
+    ecfg = EngineConfig(**f32, ckpt_interval_tokens=f32["page_size"])
+    start = time.monotonic()
+
+    def clock():
+        return time.monotonic() - start
+    pool = DistributedKVPool(capacity_bytes=8 << 30, metadata_lag=0.0,
+                             clock=clock)
+    a, b = (InferenceEngine(cfg, ecfg, seed=0, device="cuda", clock=clock,
+                            kv_pool_client=pool, engine_id=eid)
+            for eid in ("a", "b"))
+    rng = np.random.default_rng(53)
+    lo, hi = SIM_RECOVER_PROMPTS
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(lo, hi + 1, SIM_RECOVER_REQUESTS)]
+    reqs = [greedy(Request, SamplingParams, p, SIM_RECOVER_NEW)
+            for p in prompts]
+    monitor, injector = DiagnosticMonitor(), FailureInjector()
+    healthy = []
+
+    def observe():
+        sample = Telemetry(pod_id="a", t=clock(),
+                           tokens_per_sec=a.metrics().tokens_per_sec)
+        return monitor.observe(injector.perturb(sample))
+
+    def drive_a():
+        for r in reqs:
+            a.submit(r)
+        while not all(r.ckpt_tokens > r.prompt_len
+                      and len(r.output_tokens) >= SIM_CRASH_AFTER
+                      for r in reqs):
+            if not a.has_work:
+                raise AssertionError("sim_recover: A finished before "
+                                     "the crash")
+            a.step()
+            healthy.extend(observe())
+
+    t0 = time.perf_counter()
+    modes_a, launches_a, want_a = counted(torch, a, pa, pp, drive_a)
+    generated = [list(r.output_tokens) for r in reqs]
+    injector.inject("a", FaultKind.DEVICE_LOST, clock())
+    action = [(d.pod_id, d.fault.value, d.action) for d in observe()]
+    if action != [("a", "device_lost", "restart")]:
+        raise AssertionError(f"sim_recover: the monitor said {action}")
+    lost = a.sched.crash_takeover(clock())
+    covered = [r.ckpt_tokens for r in reqs]
+    resumed = sum(r.ckpt_tokens > r.prompt_len for r in lost)
+    rewound = all(r.output_tokens == g[:r.ckpt_tokens - r.prompt_len]
+                  for r, g in zip(reqs, generated))
+
+    def drive_b():
+        for r in lost:
+            b.submit(r)
+        b.run_until_idle()
+    modes_b, launches_b, want_b = counted(torch, b, pa, pp, drive_b)
+    wall = time.perf_counter() - t0
+    launches = {k: launches_a[k] + launches_b[k] for k in launches_a}
+    want = {k: want_a[k] + want_b[k] for k in want_a}
+    remote_hits = b.metrics().remote_hit_tokens
+    b_resumes = b.sched._m["crash_resumes"]
+    leaked = b.alloc.num_pages - b.alloc.num_free
+    del a, b
+    gc.collect()        # each engine's scheduler holds its bound methods
+
+    lone = InferenceEngine(cfg, EngineConfig(**f32), seed=0, device="cuda")
+    alone = [greedy(Request, SamplingParams, p, SIM_RECOVER_NEW)
+             for p in prompts]
+    for r in alone:
+        lone.submit(r)
+    lone.run_until_idle()
+    del lone
+    gc.collect()
+    torch.cuda.empty_cache()
+    same = [list(r.output_tokens) == list(x.output_tokens)
+            for r, x in zip(reqs, alone)]
+    ok = (healthy == [] and len(lost) == SIM_RECOVER_REQUESTS and rewound
+          and all(same) and all(len(r.output_tokens) == SIM_RECOVER_NEW
+                                for r in reqs)
+          and remote_hits == sum(covered)
+          and b_resumes == resumed == SIM_RECOVER_REQUESTS
+          and leaked == 0 and launches == want
+          and min(launches.values()) > 0)
+    emit("sim_recover", model=cfg.name, dtype="float32",
+         requests=SIM_RECOVER_REQUESTS,
+         prompt_tokens=[len(p) for p in prompts],
+         max_new=SIM_RECOVER_NEW, steps_a=modes_a, steps_b=modes_b,
+         tokens_at_crash=[len(g) for g in generated],
+         diagnoses_before_fault=len(healthy), diagnosis=action,
+         harvested=len(lost), checkpointed_tokens=covered,
+         remote_hit_tokens=remote_hits, resumed=resumed,
+         crash_resumes=b_resumes, leaked_pages_b=leaked,
+         same_tokens_as_lone_engine=same, launches=launches,
+         expected_launches=want, wall_s=wall, card=nvidia_smi(), ok=ok)
+    if not ok:
+        raise AssertionError("sim_recover failed its checks")
+    return launches
+
+
 # ------------------------------------------------------------ timing
 def time_ms(torch, fn, iters=50, warmup=5):
     for _ in range(warmup):
@@ -3117,7 +3470,7 @@ def ptxas_summary(log):
 
 
 PHASES = ("kernels", "sampling", "step", "serve", "lora", "tiers", "spec",
-          "launch", "slot_step", "slot_serve", "moe", "ssm", "train",
+          "launch", "slot_step", "slot_serve", "moe", "ssm", "train", "sim",
           "timing", "profile")
 
 
@@ -3186,6 +3539,7 @@ def main() -> int:
     hymba = get_config("hymba-1.5b")
     launches = slot_launches = moe_launches = ssm_launches = dict.fromkeys(
         KERNEL_INFO, 0)
+    fit_launches = sim_launches = launches
     slot_by_window, ssm_by_window = {}, {}
     if "step" in only:
         starts.append(("step", time.perf_counter()))
@@ -3245,6 +3599,13 @@ def main() -> int:
         train_phase(torch, {"flash_prefill": fp, "paged_attention": pa,
                             "paged_prefill": pp})
         emit("train_done", seconds=time.perf_counter() - t0)
+    if "sim" in only:
+        starts.append(("sim", time.perf_counter()))
+        t0 = time.perf_counter()
+        spec, fit_launches = sim_fit(torch, cfg, pa, pp)
+        sim_cluster(torch, cfg, spec)
+        sim_launches = sim_recover(torch, cfg, pa, pp)
+        emit("sim_done", seconds=time.perf_counter() - t0)
     lines = []
     if "timing" in only:
         starts.append(("timing", time.perf_counter()))
@@ -3256,9 +3617,11 @@ def main() -> int:
                      s=HYMBA_FLASH_SEQ, model=hymba.name)
         # each path's launches: the serves of qwen3-0.6b (the kernels'
         # own ``launches``), granite-moe-3b-a800m, gemma3-4b and
-        # hymba-1.5b
+        # hymba-1.5b, and the fit and the crash recovery of the sim phase
         for line in lines:
             line["launches_by_path"] = {
+                f"{cfg.name} sim fit": fit_launches.get(line["name"], 0),
+                f"{cfg.name} sim recover": sim_launches.get(line["name"], 0),
                 f"{cfg.name} serve": launches.get(line["name"], 0),
                 f"{granite.name} serve": moe_launches.get(line["name"], 0),
                 f"{gemma.name} slot serve": slot_launches.get(line["name"],

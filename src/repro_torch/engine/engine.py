@@ -144,6 +144,30 @@ class EngineConfig:
             spec_probe_interval=self.spec_probe_interval, **kw)
 
 
+class _KVScheduler(Scheduler):
+    """The copied scheduler, with the recovery log held to K/V that the
+    pages really hold.  A running request's newest token has no K/V yet:
+    the next step feeds it.  The copied ``_maybe_checkpoint`` counts it,
+    so each page that ends on it is published with its last slot
+    unwritten; a resume re-feeds only the request's newest kept token,
+    and attends to the stale slot of every earlier such page (the JAX
+    package's scheduler does the same).  Here the log covers the tokens
+    before the newest only.  The simulator keeps the copy: it holds no
+    K/V."""
+
+    def _maybe_checkpoint(self, now: float) -> None:
+        if (not self.scfg.ckpt_interval_tokens or self.kv_pool is None
+                or self.publish_page is None):
+            return
+        newest = [(r, r.output_tokens.pop()) for r in self.running
+                  if r.output_tokens]
+        try:
+            super()._maybe_checkpoint(now)
+        finally:
+            for r, tok in newest:
+                r.output_tokens.append(tok)
+
+
 class InferenceEngine:
     def __init__(self, cfg: ModelConfig, ecfg: EngineConfig = None,
                  params=None, clock: Callable[[], float] = time.monotonic,
@@ -183,7 +207,7 @@ class InferenceEngine:
             self.ssd_pool = SSDPagePool(
                 capacity_bytes=int(ecfg.ssd_cache_gb * (1 << 30)),
                 directory=ssd_dir)
-        self.sched = Scheduler(
+        self.sched = _KVScheduler(
             ecfg.scheduler_config(),
             PageAllocator(ecfg.num_pages, ecfg.page_size),
             kv_pool=kv_pool_client, engine_id=engine_id,

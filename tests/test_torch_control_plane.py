@@ -3,8 +3,9 @@
 1. Every module the port copies from the JAX package (pure Python: the
    configs, the scheduler and its helpers, the KV cache pool and tiers,
    and the control plane: autoscaler, runtime sidecar, LoRA controller,
-   GPU optimizer, gateway, orchestration, the workload summaries) equals
-   its reference once ``repro.`` reads ``repro_torch.``: the ASTs are
+   GPU optimizer, gateway, orchestration, the diagnostics, the cluster
+   simulator and its workloads, the analytic roofline) equals its
+   reference once ``repro.`` reads ``repro_torch.``: the ASTs are
    compared with docstrings stripped.  The differences that are meant
    are listed in ``DOCUMENTED`` and explained in those files.
 2. The real-engine pins of the control plane, replayed with port engines
@@ -37,24 +38,24 @@ from repro_torch.core.kvcache.pool import DistributedKVPool  # noqa: E402
 from repro_torch.core.orchestration.pools import RolePoolManager  # noqa: E402
 from repro_torch.engine import (EngineConfig, InferenceEngine,  # noqa: E402
                                 Request, RequestState, SamplingParams)
+from repro_torch.engine.page_table import chunk_hashes  # noqa: E402
 
 torch.set_num_threads(1)
 
 SRC = pathlib.Path(__file__).resolve().parent.parent / "src"
 PACKAGES = ("core/autoscaler", "core/runtime", "core/lora",
             "core/optimizer", "core/gateway", "core/orchestration",
-            "core/kvcache", "configs")
+            "core/kvcache", "core/diagnostics", "core/sim", "configs")
 COPIES = sorted(
     [str(p.relative_to(SRC / "repro")) for pkg in PACKAGES
      for p in (SRC / "repro" / pkg).glob("*.py")]
-    + ["core/sim/__init__.py", "core/sim/workloads.py", "models/config.py",
-       "engine/scheduler.py", "engine/page_table.py", "engine/request.py",
-       "engine/speculative.py"])
+    + ["models/config.py", "engine/scheduler.py", "engine/page_table.py",
+       "engine/request.py", "engine/speculative.py", "launch/analytic.py"])
 # meant differences, each explained in the port's file
 DOCUMENTED = {
     "core/kvcache/tiers.py",        # bf16 payloads without ml_dtypes
     "core/kvcache/__init__.py",     # also exports KVPoolError
-    "core/sim/__init__.py",         # the workloads only, no simulator
+    "launch/analytic.py",           # the roofline's constants: an H100's
 }
 ENGINE_KW = dict(page_size=8, num_pages=64, max_batch=4,
                  max_pages_per_seq=16, chunk_size=16)
@@ -254,4 +255,72 @@ def test_crash_recovery_real_engine_token_identical(weights):
     assert req.output_tokens == ref
     assert b.metrics().remote_hit_tokens == resume_cov
     assert b.sched._m["crash_resumes"] == 1
+    assert b.alloc.num_free == b.alloc.num_pages
+
+
+def test_recovery_log_holds_written_kv(weights):
+    """The port's engine checkpoints only K/V its pages hold.  A running
+    request's newest token has no K/V until the next step feeds it; the
+    copied scheduler's recovery log counted it, so every page ending on
+    it went to the pool with its last slot unwritten, and a request
+    resumed past two such pages attended to a stale slot.  Four requests
+    on A, each past a checkpointed generated page: after one more step
+    every page in the log equals A's own page, and the four resumed on
+    B end with the tokens of a lone port engine and of a lone JAX
+    engine."""
+    _, cfg, _, params = weights
+    clock = _clock()
+    pool = DistributedKVPool(capacity_bytes=1 << 30, metadata_lag=0.0,
+                             clock=clock)
+    kw = dict(ENGINE_KW, num_pages=128, ckpt_interval_tokens=8)
+    a, b = (InferenceEngine(cfg, EngineConfig(**kw), clock=clock,
+                            kv_pool_client=pool, engine_id=eid,
+                            params=params[0], device="cpu")
+            for eid in ("a", "b"))
+    rng = np.random.default_rng(54)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in (21, 30, 35, 44)]
+    reqs = [Request(prompt_tokens=list(p),
+                    sampling=SamplingParams(max_new_tokens=24))
+            for p in prompts]
+    for r in reqs:
+        a.submit(r)
+    while not all(len(r.output_tokens) >= 18 for r in reqs):
+        a.step()
+    assert all(r.ckpt_tokens >= r.prompt_len + 8 for r in reqs)
+    a.step()                                 # the newest tokens' K/V
+    for r in reqs:
+        hashes = chunk_hashes(r.prompt_tokens + r.output_tokens, 8)
+        for i in range(r.ckpt_tokens // 8):
+            logged = pool.fetch(hashes[i], "check", clock())
+            own = a.runner.page_payload(r.page_ids[i])
+            assert all(np.array_equal(x, y) for x, y in zip(logged, own))
+
+    lost = a.sched.crash_takeover(clock())
+    covered = sum(r.ckpt_tokens for r in lost)
+    for r in lost:
+        b.submit(r)
+    b.run_until_idle()
+    lone = InferenceEngine(cfg, EngineConfig(**ENGINE_KW), params=params[0],
+                           device="cpu")
+    alone = [Request(prompt_tokens=list(p),
+                     sampling=SamplingParams(max_new_tokens=24))
+             for p in prompts]
+    for r in alone:
+        lone.submit(r)
+    lone.run_until_idle()
+    jcfg, _, jparams, _ = weights
+    jlone = J.InferenceEngine(jcfg, J.EngineConfig(**ENGINE_KW),
+                              params=jparams[0])
+    jalone = [J.Request(prompt_tokens=list(p),
+                        sampling=J.SamplingParams(max_new_tokens=24))
+              for p in prompts]
+    for r in jalone:
+        jlone.submit(r)
+    jlone.run_until_idle()
+    assert [r.output_tokens for r in reqs] == \
+        [r.output_tokens for r in alone] == \
+        [list(r.output_tokens) for r in jalone]
+    assert b.metrics().remote_hit_tokens == covered
+    assert b.sched._m["crash_resumes"] == 4
     assert b.alloc.num_free == b.alloc.num_pages

@@ -1,7 +1,7 @@
 """Import hygiene of the port: nothing under ``src/repro_torch/``, no
 ``examples/torch_*.py`` and not ``chip_smoke.py`` imports ``jax`` or
-anything of the JAX package ``repro``, and importing the port's engine
-or trainer loads neither."""
+anything of the JAX package ``repro``, and importing the port's engine,
+trainer, cluster simulator or diagnostics loads neither."""
 import ast
 import pathlib
 import subprocess
@@ -45,7 +45,8 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.engine, repro_torch.bridge, "
             "repro_torch.configs, repro_torch.kernels.ops, "
             "repro_torch.training.checkpoint, repro_torch.data, "
-            "repro_torch.launch.train; "
+            "repro_torch.launch.train, repro_torch.core.sim, "
+            "repro_torch.core.diagnostics; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = {"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin"}
