@@ -167,6 +167,26 @@ Phases, each printing one JSON line:
             resume on the second engine from the recovery log with a
             lone engine's tokens, remote hits equal to the logged
             coverage, no page leaked, exact kernel launches;
+   shard    the reference's weights and the sharded trainer: (a)
+            ``repro_torch.random``'s ``normal`` and ``truncated_normal``
+            on the card bit for bit against values recorded from jax
+            0.9.0 (float32 and bf16), ``M.init`` of reduced qwen3-0.6b
+            and granite-moe-3b-a800m equal on the card and the CPU leaf
+            for leaf, and full-width bf16 ``M.init`` of qwen3-0.6b,
+            gemma3-4b and granite-moe-3b-a800m timed (seconds, peak
+            memory); (b) full-width qwen3-0.6b bf16 train steps on a
+            one-rank NCCL (1, 1) mesh with the default rules (params
+            and moments DTensors) against the unsharded step from the
+            same state and batches: loss and grad norm within the train
+            phase's grad_accum bound, tokens/s and peak memory of both;
+            (c) the dry-run (``repro_torch.launch.dryrun``, a child
+            process a case, started with the script, on a fake process
+            group of 256 or 512 ranks) of qwen3-0.6b and
+            granite-moe-3b-a800m train_4k and gemma3-4b decode_32k on
+            16x16 and gemma3-4b decode_32k on 2x16x16:
+            each record ok, its per-device bytes (shapes, not a
+            measurement), collective bytes by kind, dominant roofline
+            term and seconds; no kernel launches;
 11. timing  each kernel, its plain version, the library call and the
             least time the card could take, at the serving shapes (also
             at granite's G 3 for the paged kernels, and
@@ -196,6 +216,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -336,6 +357,31 @@ SIM_ENGINE = dict(page_size=16, max_batch=8, chunk_size=64,
                   mixed_batching=True, ckpt_interval_tokens=64)
 SIM_RECOVER_REQUESTS, SIM_RECOVER_PROMPTS = 4, (100, 300)
 SIM_RECOVER_NEW, SIM_CRASH_AFTER = 48, 24
+# the shard phase.  (a) ``normal`` / ``truncated_normal`` of
+# fold_in(PRNGKey(3), 12345) over 2**20 + 5 values: the first 6 bit
+# patterns and the sum of all of them, recorded from jax 0.9.0.
+SHARD_DRAW_N = (1 << 20) + 5
+JAX_DRAWS = {
+    ("normal", "float32"): ([3218547637, 3219348457, 1057628464,
+                             1063602947, 3189937786, 1055946771],
+                            2234143415673488),
+    ("normal", "bfloat16"): ([16305, 48887, 48865, 16144, 49047, 48821],
+                             34121157881),
+    ("truncated_normal", "float32"): ([3217015991, 3217570486, 1057177406,
+                                       1062723893, 3189449153, 1055178664],
+                                      2233236689381963),
+    ("truncated_normal", "bfloat16"): ([16288, 48879, 48856, 16134, 49037,
+                                        48816], 33982351337),
+}
+# full-width bf16 inits timed; (c) the dry-run's cases (arch:shape:mesh),
+# each in a child process of its own on a fake process group of 256 /
+# 512 ranks, all started with the script (a train case runs ~1.4M fake
+# ops a micro-batch: qwen3-0.6b ~130 s on one core, granite's 4
+# micro-batches several minutes); the phase waits at most this long
+SHARD_INIT_ARCHS = ("qwen3-0.6b", "gemma3-4b", "granite-moe-3b-a800m")
+SHARD_DRYRUN = ("qwen3-0.6b:train_4k:pod", "granite-moe-3b-a800m:train_4k:pod",
+                "gemma3-4b:decode_32k:pod", "gemma3-4b:decode_32k:multipod")
+SHARD_DRYRUN_TIMEOUT = 200
 # full-width f32 step: kernel logits vs plain logits, relative to the
 # logits' scale.  The two differ only in the order of the attention's
 # float32 sums (~1e-6 relative per call); 28 layers of residual updates
@@ -1222,12 +1268,14 @@ def lora_step(torch, cfg):
     adapters, some rows on the base model), with the kernels and with the
     plain versions: logits and pools must agree, and the adapters must
     change the logits."""
+    from repro_torch import random as R
     from repro_torch.engine import paged_model as PM
     params, pool, a, page = step_inputs(torch, cfg, torch.float32)
     bank = PM.init_lora(cfg, LORA_ADAPTERS + 1, LORA_RANK, torch.float32,
                         "cuda")
     for i in range(1, LORA_ADAPTERS + 1):
-        for k, w in PM.make_adapter(cfg, LORA_RANK, seed=100 + i).items():
+        for k, w in PM.make_adapter(cfg, LORA_RANK,
+                                    R.prng_key(100 + i)).items():
             bank[k][i].copy_(w)
     ids = dict(dec_adapter_ids=torch.tensor(
         [1, 2, 0, 3, 4, 0, 1, 0], dtype=torch.int32, device="cuda"),
@@ -1679,6 +1727,7 @@ def spec_steps(torch, cfg, pa, pp):
     pools must agree, and each step launch ``paged_prefill`` once a
     layer for the lanes (and once more for the chunks) and never
     ``paged_attention``."""
+    from repro_torch import random as R
     from repro_torch.engine import paged_model as PM
     params, pool, a, page = step_inputs(torch, cfg, torch.float32)
     sd, b = 1 + SPEC_TOKENS, a["dec_tokens"].shape[0]
@@ -1697,7 +1746,8 @@ def spec_steps(torch, cfg, pa, pp):
     bank = PM.init_lora(cfg, LORA_ADAPTERS + 1, LORA_RANK, torch.float32,
                         "cuda")
     for i in range(1, LORA_ADAPTERS + 1):
-        for k, w in PM.make_adapter(cfg, LORA_RANK, seed=100 + i).items():
+        for k, w in PM.make_adapter(cfg, LORA_RANK,
+                                    R.prng_key(100 + i)).items():
             bank[k][i].copy_(w)
     lane_ids = torch.tensor([1, 2, 0, 3, 4, 0, 1, 0], **i32)
     pre_ids = torch.tensor([3, 0], **i32)
@@ -2750,6 +2800,189 @@ def train_blockwise(torch, cfg, full):
     del res, q, k, v, cot, mask
 
 
+# ------------------------------------------------------------ shard
+def shard_phase(torch, counters, dryrun):
+    """The shard phase (see the module's docstring): the dry-run
+    children (``start_dryrun``) run on the CPU while (a) and (b) run on
+    the card; the phase then waits for them."""
+    out_dir, children = dryrun
+    try:
+        before = {n: m.launches for n, m in counters.items()}
+        shard_draws(torch)
+        shard_init(torch)
+        shard_train(torch)
+        after = {n: m.launches for n, m in counters.items()}
+        if after != before:
+            raise AssertionError(f"a kernel launched in the shard phase: "
+                                 f"{before} -> {after}")
+        t0 = time.perf_counter()
+        for c in children:
+            c.wait(timeout=max(
+                SHARD_DRYRUN_TIMEOUT - (time.perf_counter() - t0), 1))
+    finally:
+        for c in children:
+            if c.poll() is None:
+                c.kill()
+                c.wait()
+    logs = [(out_dir / f"child{i}.log").read_text()
+            for i in range(len(children))]
+    shard_dryrun(out_dir, [c.returncode for c in children], logs)
+
+
+def shard_draws(torch):
+    """(a) The draws on the card against jax's recorded bits."""
+    from repro_torch import random as R
+    key = R.fold_in(R.prng_key(3, "cuda"), 12345)
+    res, ok = {}, True
+    for (kind, dname), (head, total) in JAX_DRAWS.items():
+        dtype = getattr(torch, dname)
+        x = (R.normal(key, (SHARD_DRAW_N,), dtype) if kind == "normal"
+             else R.truncated_normal(key, -2.0, 2.0, (SHARD_DRAW_N,),
+                                     dtype))
+        bits = x.view(torch.int16 if dname == "bfloat16" else torch.int32
+                      ).long() & (0xFFFF if dname == "bfloat16"
+                                  else 0xFFFFFFFF)
+        got = (bits[:len(head)].tolist(), int(bits.sum()))
+        res[f"{kind}/{dname}"] = got == (head, total)
+        ok &= got == (head, total)
+    emit("shard_draws", n=SHARD_DRAW_N, equal_to_jax=res, ok=ok)
+    if not ok:
+        raise AssertionError("the draws on the card differ from jax's")
+
+
+def shard_init(torch):
+    """(a) ``M.init`` card against CPU (reduced), and full-width bf16
+    inits timed."""
+    from repro_torch.configs import get_config, get_reduced_config
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_flatten
+    draw = getattr(M.init, "__wrapped__", M.init)     # never a held tree
+    equal = {}
+    for arch in ("qwen3-0.6b", "granite-moe-3b-a800m"):
+        cfg = get_reduced_config(arch)
+        card = dict(tree_flatten(draw(cfg, 0, device="cuda")))
+        cpu = dict(tree_flatten(draw(cfg, 0, device="cpu")))
+        equal[arch] = set(card) == set(cpu) and all(
+            torch.equal(card[k].cpu(), cpu[k]) for k in cpu)
+    timed = {}
+    for arch in SHARD_INIT_ARCHS:
+        cfg = get_config(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        params = draw(cfg, 0, torch.bfloat16, "cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        timed[arch] = dict(
+            seconds=wall, params=M.count_params(cfg),
+            param_gb=(torch.cuda.memory_allocated() - base) / 1e9,
+            peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9)
+        del params
+    ok = all(equal.values())
+    emit("shard_init", card_equals_cpu=equal, full_width_bf16=timed,
+         card=nvidia_smi(), ok=ok)
+    if not ok:
+        raise AssertionError("M.init differs between the card and the CPU")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def shard_train(torch):
+    """(b) Full-width qwen3-0.6b bf16: the sharded step on a one-rank
+    NCCL (1, 1) mesh against the unsharded step."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_lm_batches
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import sharding
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train_loop as T
+    cfg = get_config("qwen3-0.6b")
+    opt = O.AdamWConfig(**TRAIN_OPT)
+    data = synthetic_lm_batches(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ,
+                                device="cuda")
+    batches = [next(data) for _ in range(TRAIN_STEPS)]
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        ctx = sharding.ShardingCtx(make_debug_mesh(), sharding.DEFAULT_RULES)
+        runs = {}
+        for name in ("unsharded", "sharded"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            params = M.init(cfg, 0, torch.bfloat16, "cuda")
+            if name == "sharded":
+                params = sharding.distribute(ctx, params, M.param_axes(cfg))
+            state = T.TrainState(params, O.adamw_init(params))
+            step = T.make_train_step(cfg, opt, ctx=(
+                ctx if name == "sharded" else None))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            rows = []
+            for b in batches:
+                if name == "sharded":
+                    b = sharding.distribute(ctx, b, {
+                        k: ("batch", "seq") for k in b})
+                state, m, wall = timed_step(torch, step, state, b)
+                rows.append(dict(loss=m["loss"], grad_norm=m["grad_norm"],
+                                 wall_s=wall))
+            best = min(r["wall_s"] for r in rows)
+            runs[name] = dict(steps=rows, best_wall_s=best,
+                              tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / best,
+                              peak_memory_gb=torch.cuda.max_memory_allocated()
+                              / 1e9)
+            del state, params, step
+        errs = [max(rel_err(s[k], u[k]) for k in ("loss", "grad_norm"))
+                for s, u in zip(runs["sharded"]["steps"],
+                                runs["unsharded"]["steps"])]
+        ok = max(errs) <= TRAIN_ACCUM_RTOL
+        emit("shard_train", model=cfg.name, dtype="bfloat16",
+             batch=[TRAIN_BATCH, TRAIN_SEQ], mesh=[1, 1], backend="nccl",
+             rel_errs=errs, tol=TRAIN_ACCUM_RTOL, card=nvidia_smi(), ok=ok,
+             **runs)
+    finally:
+        dist.destroy_process_group()
+    if not ok:
+        raise AssertionError("the sharded train step disagrees with the "
+                             "unsharded step")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def shard_dryrun(out_dir, rcs, logs):
+    """(c) The dry-run children's records."""
+    recs = {}
+    for case in SHARD_DRYRUN:
+        arch, shape, mesh = case.split(":")
+        tag = f"{arch}_{shape}_{'2x16x16' if mesh == 'multipod' else '16x16'}"
+        path = out_dir / f"{tag}.json"
+        recs[case] = json.loads(path.read_text()) if path.exists() else {
+            "status": "missing"}
+    for case, r in recs.items():
+        if r.get("status") != "ok":
+            emit("shard_dryrun", case=case, status=r.get("status"),
+                 error=r.get("error"), op=r.get("op"), ok=False)
+            continue
+        coll = r["collectives_per_device_bytes"]
+        emit("shard_dryrun", case=case, status="ok", chips=r["chips"],
+             per_device_gb_shapes=r["memory"]["per_device_bytes"] / 1e9,
+             argument_gb=r["memory"]["argument_bytes"] / 1e9,
+             fits_80g_hbm=r["memory"]["fits_80g_hbm"],
+             collective_gb={k: v / 1e9 for k, v in coll.items() if v},
+             dominant=r["roofline"]["dominant"], seconds=r["seconds"],
+             ok=True)
+    ok = rcs == [0] * len(rcs) and all(r.get("status") == "ok"
+                                        for r in recs.values())
+    if not ok:
+        for log in logs:
+            print(log[-3000:], file=sys.stderr)
+        raise AssertionError(f"the dry-run failed (exits {rcs})")
+
+
 # ------------------------------------------------------------ sim
 def sim_fit(torch, cfg, pa, pp):
     """The sim phase (a): the planner's ``h100`` entry fitted from the
@@ -3339,12 +3572,14 @@ def profile_step(torch, cfg):
     chunks of 64 and 37), ended by a synchronize as the engine's
     sampling ends it; then the same step with a bank of 4 adapters, the
     rows on 4 distinct adapters and the base model."""
+    from repro_torch import random as R
     from repro_torch.engine import paged_model as PM
     params, pool, a, page = step_inputs(torch, cfg, torch.bfloat16)
     bank = PM.init_lora(cfg, LORA_ADAPTERS + 1, LORA_RANK, torch.bfloat16,
                         "cuda")
     for i in range(1, LORA_ADAPTERS + 1):
-        for k, w in PM.make_adapter(cfg, LORA_RANK, seed=100 + i).items():
+        for k, w in PM.make_adapter(cfg, LORA_RANK,
+                                    R.prng_key(100 + i)).items():
             bank[k][i].copy_(w)
     ids = dict(dec_adapter_ids=torch.tensor(
         [1, 2, 0, 3, 4, 0, 1, 0], dtype=torch.int32, device="cuda"),
@@ -3471,7 +3706,63 @@ def ptxas_summary(log):
 
 PHASES = ("kernels", "sampling", "step", "serve", "lora", "tiers", "spec",
           "launch", "slot_step", "slot_serve", "moe", "ssm", "train", "sim",
-          "timing", "profile")
+          "timing", "profile", "shard")
+
+
+def memo_init():
+    """Draw each (config, seed, device) once while it is the newest:
+    ``M.init`` draws the reference's weights with the ported threefry
+    and erf_inv (2.4 s for qwen3-0.6b, 18.6 s for gemma3-4b on the
+    card), and the phases build engines of one model many times, in
+    float32 and in bf16.  One tree is held: a bf16 request of the held
+    float32 draw takes its cast (as ``init_params`` casts its float32
+    draw) and is held instead.  Nothing here writes to a weight.
+    ``M.init.__wrapped__`` draws afresh (the shard phase times it)."""
+    import functools
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_map
+    draw = M.init
+    held = {}
+
+    @functools.wraps(draw)
+    def init(cfg, seed=0, dtype=None, device=None):
+        import torch
+        dtype = dtype or torch.float32
+        key = (cfg, seed, str(device))
+        have = held.get(key)
+        if have is None or have[0] not in (dtype, torch.float32):
+            held.clear()
+            have = held[key] = (torch.float32,
+                                draw(cfg, seed, torch.float32, device))
+        if have[0] != dtype:
+            held[key] = (dtype, tree_map(lambda t: t.to(dtype), have[1]))
+        return held[key][1]
+    M.init = init
+
+
+def start_dryrun():
+    """(c) of the shard phase: one dry-run child a case, started with
+    the script so that they run on the host's cores beside the other
+    phases (they hold no card: a fake process group, fake tensors)."""
+    import atexit
+    out_dir = ROOT / "build" / "chip_smoke_dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    children = []
+    for i, case in enumerate(SHARD_DRYRUN):
+        with open(out_dir / f"child{i}.log", "w") as log:
+            children.append(subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--out", str(out_dir), "--case", case], env=env,
+                stdout=log, stderr=subprocess.STDOUT))
+
+    def stop():                 # a phase failed before (c) collected them
+        for c in children:
+            if c.poll() is None:
+                c.kill()
+                c.wait()
+    atexit.register(stop)
+    return out_dir, children
 
 
 def main() -> int:
@@ -3507,6 +3798,8 @@ def main() -> int:
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import paged_prefill as pp
 
+    memo_init()
+    dryrun = start_dryrun() if "shard" in only else None
     smi = nvidia_smi()
     emit("device", nvidia_smi=smi, kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
@@ -3636,6 +3929,14 @@ def main() -> int:
         profile_slot(torch, gemma)
         for arch in ("hymba-1.5b", "xlstm-1.3b"):
             profile_ssm(torch, get_config(arch), traced=True)
+    if "shard" in only:
+        # last: after its NCCL group, traces of the timing phase held no
+        # kernel events
+        starts.append(("shard", time.perf_counter()))
+        t0 = time.perf_counter()
+        shard_phase(torch, {"flash_prefill": fp, "paged_attention": pa,
+                            "paged_prefill": pp}, dryrun)
+        emit("shard_done", seconds=time.perf_counter() - t0)
 
     ends = [t for _, t in starts[1:]] + [time.perf_counter()]
     emit("phase_seconds", **{name: end - t0 for (name, t0), end

@@ -1,9 +1,10 @@
 """Carry weights, adapters, KV pages, slot caches and training states over
 from the JAX package, as numpy arrays, and training states back.
 
-``repro`` draws its parameters with ``jax.random`` and the port with
-``torch.Generator``s, so the two never agree from a seed.  To compute
-the same thing in both packages, a caller hands the JAX param tree
+Both packages draw the same weights from a seed (``repro_torch.random``
+ports ``jax.random``); the bridge carries state that was not drawn from
+a seed: trained or loaded params, caches, pages.  A caller hands the JAX
+param tree
 (``repro.models.model.init``: ``embedding``, one stacked ``run_<i>``
 per layer run, ``final_norm``, an optional ``lm_head``), any K/V pool
 and any slot caches (``repro.models.model.init_cache``) to these

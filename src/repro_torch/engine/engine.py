@@ -11,8 +11,8 @@ schedule on a device: ``mixed_step`` for fused decode + prefill passes,
 High-density LoRA serving: requests name an adapter; the runner's bank
 holds ``max_adapters - 1`` of them (slot 0 is the base model) with an
 LRU cascade into a bounded host tier.  An adapter the caller does not
-pass in is autoloaded from the port's own name-keyed weights
-(``ModelRunner._adapter_seed``), which differ from the JAX package's.
+pass in is autoloaded from name-keyed weights
+(``ModelRunner._adapter_key``), the JAX package's draws for the name.
 
 The KV tiers, as in the JAX engine: a host-DRAM tier (``host_cache_gb``:
 device evictions cascade into it, preemption swaps to it), an SSD tier

@@ -39,6 +39,7 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import random as R
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers, moe
@@ -88,22 +89,21 @@ def init_lora(cfg: ModelConfig, n_adapters: int, rank: int,
     return init_params(lora_specs(cfg, n_adapters, rank), 7, dtype, device)
 
 
-def make_adapter(cfg: ModelConfig, rank: int, seed: int) -> dict:
-    """A single random (non-zero) adapter's weights, float32 on the CPU.
-
-    Drawn from a CPU ``torch.Generator`` seeded with ``seed``, so a seed
-    gives the same weights whatever device the bank lives on.  The
-    scales are the JAX package's; the numbers are not (it draws with
-    ``jax.random``)."""
+def make_adapter(cfg: ModelConfig, rank: int, key: torch.Tensor,
+                 dtype=torch.float32) -> dict:
+    """A single random (non-zero) adapter's weights, on the key's device:
+    ``repro.engine.paged_model.make_adapter``'s draws from the same key
+    (a 4-way ``split``, one ``normal`` each), bit for bit."""
     d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    gen = torch.Generator().manual_seed(seed)
-    a_scale = 1.0 / (d ** 0.5)
-    b_scale = 0.5 / (rank ** 0.5)       # strong enough to alter outputs
+    k1, k2, k3, k4 = R.split(key, 4)
+    # the scales round to ``dtype`` first, as jax's weak-typed scalars do
+    a_scale, b_scale = torch.tensor(
+        [1.0 / (d ** 0.5), 0.5 / (rank ** 0.5)], dtype=dtype).tolist()
     return {
-        "A_q": torch.randn(d, rank, generator=gen) * a_scale,
-        "B_q": torch.randn(rank, h * hd, generator=gen) * b_scale,
-        "A_v": torch.randn(d, rank, generator=gen) * a_scale,
-        "B_v": torch.randn(rank, hkv * hd, generator=gen) * b_scale,
+        "A_q": R.normal(k1, (d, rank), dtype) * a_scale,
+        "B_q": R.normal(k2, (rank, h * hd), dtype) * b_scale,
+        "A_v": R.normal(k3, (d, rank), dtype) * a_scale,
+        "B_v": R.normal(k4, (rank, hkv * hd), dtype) * b_scale,
     }
 
 

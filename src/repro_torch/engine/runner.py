@@ -39,7 +39,8 @@ import torch
 
 from repro_torch.engine import paged_model as PM
 from repro_torch.engine.request import Request
-from repro_torch.engine.sampling import prng_key, row_keys, sample, split
+from repro_torch.engine.sampling import (fold_in, prng_key, row_keys,
+                                         sample, split)
 from repro_torch.engine.scheduler import PrefillWork, ScheduleOutput
 from repro_torch.engine.speculative import accept_length
 from repro_torch.models import model as M
@@ -165,13 +166,13 @@ class ModelRunner:
         return torch.from_numpy(a).to(self.device, copy=True)
 
     # ------------------------------------------------------------- LoRA
-    def _adapter_seed(self, name: str) -> int:
+    def _adapter_key(self, name: str) -> torch.Tensor:
         """The 'artifact store': adapter weights derive from the NAME (and
         the engine seed), so any tier can drop them and re-materialize
-        them byte-identically.  The port's own stream: its weights differ
-        from the JAX package's for the same name."""
-        return ((self._seed + 2) << 32) | (zlib.crc32(name.encode())
-                                           & 0x7FFFFFFF)
+        them byte-identically: the reference's key, ``fold_in`` of
+        crc32(name) into ``PRNGKey(seed + 2)``, on the CPU."""
+        return fold_in(prng_key(self._seed + 2),
+                       zlib.crc32(name.encode()) & 0x7FFFFFFF)
 
     def _touch_adapter(self, name: str) -> None:
         self._lru_tick += 1
@@ -186,7 +187,7 @@ class ModelRunner:
         the bounded host tier.  Weights (tensors or float32 arrays of the
         shapes ``PM.make_adapter`` gives) come from, in order: the
         caller, the host tier, the artifact store
-        (:meth:`_adapter_seed`).  The wall time of a non-resident load
+        (:meth:`_adapter_key`).  The wall time of a non-resident load
         accumulates in ``adapter_load_s``."""
         if name in self._adapter_ids:
             self._touch_adapter(name)
@@ -211,7 +212,7 @@ class ModelRunner:
                 self.adapter_host_hits += 1
             else:
                 weights = PM.make_adapter(self.cfg, self.ecfg.lora_rank,
-                                          self._adapter_seed(name))
+                                          self._adapter_key(name))
         for k in self.lora:
             self.lora[k][idx].copy_(torch.as_tensor(weights[k]))
         if self.device.type == "cuda":      # the stall is the load's

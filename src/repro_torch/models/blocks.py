@@ -65,7 +65,8 @@ def layer_specs(cfg: C.ModelConfig, ltype: str) -> dict:
     mixer = ({"mla": mla.mla_specs(cfg)} if ltype in C.MLA_LAYER_TYPES
              else {"attn": layers.attn_specs(cfg)})
     if ltype in (C.MOE, C.MLA_MOE):
-        ffn = {"moe": moe.moe_specs(d, cfg.moe)}
+        ffn = {"moe": moe.moe_specs(d, cfg.moe,
+                                    cfg.inference_weight_layout)}
     elif ltype == C.MLA_DENSE:
         # deepseek-v2 layer 0: dense FFN sized like shared+routed width
         f = cfg.d_ff if cfg.d_ff else cfg.moe.d_expert * 4

@@ -20,6 +20,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import NEG_INF
+from repro_torch.models import sharding
 from repro_torch.models.params import Spec
 from repro_torch.tree import tree_leaves
 
@@ -215,6 +216,15 @@ def _blockwise(q, k, v, *, scale, window=0, softcap=0.0, norm="softmax",
         bias_q = F.pad(bias_q.float(), (0, 0, 0, sq_p - sq))
         bias_k = F.pad(bias_k.float(), (0, 0, 0, sk_p - sk), value=NEG_INF)
         bias_q = bias_q.reshape(b, sq_p, hkv, g)
+    # the reference's constraints: heads over model when the count
+    # divides, else sequence-sharded q blocks (no-ops on plain tensors)
+    nq, nk = sq_p // bq, sk_p // bk
+    q = sharding.constrain(q.reshape(b, nq, bq, hkv, g, d), (
+        "batch", None, "seq", "kv_heads", None, None)).reshape(q.shape)
+    k = sharding.constrain(k.reshape(b, nk, bk, hkv, d), (
+        "batch", None, None, "kv_heads", None)).reshape(k.shape)
+    v = sharding.constrain(v.reshape(b, nk, bk, hkv, dv), (
+        "batch", None, None, "kv_heads", None)).reshape(v.shape)
     dev = q.device
 
     def sweep(q_blk, bq_blk, k, v, bias_k, qi):
@@ -223,7 +233,7 @@ def _blockwise(q, k, v, *, scale, window=0, softcap=0.0, norm="softmax",
         acc = torch.zeros(b, hkv, g, bq, dv, device=dev)
         m = torch.full((b, hkv, g, bq), NEG_INF, device=dev)
         den = torch.zeros(b, hkv, g, bq, device=dev)
-        for ki in range(sk_p // bk):
+        for ki in range(nk):
             k32 = k[:, ki * bk:(ki + 1) * bk].float()
             v32 = v[:, ki * bk:(ki + 1) * bk].float()
             logits = torch.einsum("bqhgd,bkhd->bhgqk", q32, k32)
@@ -257,7 +267,7 @@ def _blockwise(q, k, v, *, scale, window=0, softcap=0.0, norm="softmax",
 
     remat = recording(q, k, v, bias_q, bias_k)
     outs = []
-    for qi in range(sq_p // bq):
+    for qi in range(nq):
         rows = slice(qi * bq, (qi + 1) * bq)
         args = (q[:, rows], bias_q[:, rows] if mlstm else None, k, v,
                 bias_k, qi)

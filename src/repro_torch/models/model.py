@@ -29,10 +29,11 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
-from repro_torch.models import blocks, layers, moe
+from repro_torch.models import blocks, layers, moe, sharding
 from repro_torch.models import config as C
-from repro_torch.models.params import (Spec, init_params,
-                                       map_specs_with_path, stack_specs)
+from repro_torch.models.params import (Spec, abstract_params, axes_tree,
+                                       init_params, map_specs_with_path,
+                                       stack_specs)
 
 
 # ===================================================================== specs
@@ -59,8 +60,17 @@ def model_specs(cfg: C.ModelConfig) -> dict:
 def init(cfg: C.ModelConfig, seed: int = 0, dtype=torch.float32,
          device=None):
     """Random weights from ``seed`` on ``device`` (the card unless one is
-    named)."""
+    named): ``repro``'s ``init(cfg, jax.random.PRNGKey(seed))``, bit for
+    bit."""
     return init_params(model_specs(cfg), seed, dtype, device)
+
+
+def abstract(cfg: C.ModelConfig, dtype=torch.float32):
+    return abstract_params(model_specs(cfg), dtype)
+
+
+def param_axes(cfg: C.ModelConfig):
+    return axes_tree(model_specs(cfg))
 
 
 def count_params(cfg: C.ModelConfig, active_only: bool = False) -> int:
@@ -97,6 +107,17 @@ def init_cache(cfg: C.ModelConfig, batch: int, cache_len: int,
     states (``blocks.STATE_FIELDS``) in float32, as in the JAX package."""
     device = resolve_device(device)
     return [blocks.alloc_cache(run, dtype, device)
+            for run in cache_struct(cfg, batch, cache_len)]
+
+
+def abstract_cache(cfg: C.ModelConfig, batch: int, cache_len: int,
+                   dtype=torch.float32) -> List[dict]:
+    """``init_cache``'s tensors as meta tensors: no allocation."""
+    return init_cache(cfg, batch, cache_len, dtype, "meta")
+
+
+def cache_axes(cfg: C.ModelConfig, batch: int, cache_len: int) -> List[dict]:
+    return [{name: axes for name, (_s, axes) in run.items()}
             for run in cache_struct(cfg, batch, cache_len)]
 
 
@@ -138,34 +159,62 @@ def layer_view(tree, i: int):
     return tree[i]
 
 
+def _gathered(params):
+    """The embedding, final norm and head as plain tensors: all-gathered
+    where they are DTensors (inside a sharded step), else as they are."""
+    if sharding.current() is None:
+        return params
+    return {k: v if k.startswith("run_") else sharding.gather_params(v)
+            for k, v in params.items()}
+
+
+def _layer(p_l, cfg: C.ModelConfig, ltype: str, x: torch.Tensor, **kw):
+    """One layer, its DTensor weights gathered first: inside the remat
+    region, so the backward gathers them again (FSDP's reshard after
+    forward)."""
+    return blocks.apply_layer(sharding.gather_params(p_l), cfg, ltype, x,
+                              **kw)
+
+
 def _trunk(params, cfg: C.ModelConfig, tokens: torch.Tensor,
            positions: Optional[torch.Tensor], caches: Optional[List[dict]],
            mode: str, impl: str, remat: bool = False):
     """The embedding, every layer and the final norm.  Returns (hidden,
     the MoE layers' routings).  ``remat`` runs each layer under
     ``torch.utils.checkpoint`` (recomputed in the backward), as the
-    reference wraps its scan body in ``jax.checkpoint``."""
+    reference wraps its scan body in ``jax.checkpoint``.  Inside a
+    sharded step each layer's DTensor weights are gathered as it runs,
+    and a DTensor cache is gathered to the batch shard's whole cache
+    for the layer and its shard written back after it."""
+    params = _gathered(params)
     if mode == "full":
         b, s = tokens.shape[:2]
         if positions is None:
             positions = torch.arange(s, device=tokens.device).expand(b, s)
         x = embed(params, cfg, tokens)
+        x = sharding.constrain(x, ("batch", "seq", None))
     else:
         x = embed(params, cfg, tokens[:, None] if tokens.dim() == 1
                   else tokens[:, None, :])
+        x = sharding.constrain(x, ("batch", None, None))
     routings = []
     for i, (ltype, n) in enumerate(cfg.layer_runs):
         run_p = params[f"run_{i}"]
         run_c = caches[i] if caches is not None else None
         for j in range(n):
             c_l = layer_view(run_c, j) if run_c is not None else None
+            c_use = sharding.gather_cache(c_l)
             layer = functools.partial(
-                blocks.apply_layer, layer_view(run_p, j), cfg, ltype,
-                positions=positions, cache=c_l, mode=mode, impl=impl)
+                _layer, layer_view(run_p, j), cfg, ltype,
+                positions=positions, cache=c_use, mode=mode, impl=impl)
             x, _, r = (checkpoint(layer, x, use_reentrant=False) if remat
                        else layer(x))
+            if c_use is not c_l:
+                sharding.scatter_cache(c_l, c_use)
             if r is not None:
                 routings.append(r)
+        if mode == "full":
+            x = sharding.constrain(x, ("batch", "seq", None))
     return layers.rms_norm(x, params["final_norm"], cfg.norm_eps), routings
 
 
@@ -198,6 +247,9 @@ def _nll_chunk(params, cfg: C.ModelConfig, x_chunk: torch.Tensor,
     """Cross-entropy over one sequence chunk, from float32 logits (B,
     chunk, V), averaged over the codebooks where there are several."""
     logits = unembed(params, cfg, x_chunk).float()
+    logits = sharding.constrain(
+        logits, ("batch", "seq", None, "vocab") if logits.dim() == 4
+        else ("batch", "seq", "vocab"))
     labels = labels_chunk.long()
     nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                           labels.reshape(-1), reduction="none")
@@ -217,6 +269,7 @@ def loss_fn(params, cfg: C.ModelConfig, batch: Dict[str, torch.Tensor],
     cross-entropy runs chunk by chunk, each under
     ``torch.utils.checkpoint``, so the float32 logits of only one
     (B, chunk, V) block live at a time, forward and backward."""
+    params = _gathered(params)
     x, _, aux = forward(params, cfg, batch["tokens"], mode="full",
                         impl="train", remat=remat)
     labels = batch["labels"]
@@ -230,7 +283,10 @@ def loss_fn(params, cfg: C.ModelConfig, batch: Dict[str, torch.Tensor],
     else:
         nll = _nll_chunk(params, cfg, x, labels)
     w = batch["weights"].float()
-    loss = (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
+    # inside a sharded step: this batch shard's share of the loss (the
+    # step sums the shares; the weights' total is the whole batch's)
+    loss = (nll * w).sum() / torch.clamp(sharding.batch_sum(w.sum()),
+                                         min=1.0)
     metrics = {"nll": loss, **aux}
     total = loss + sum(aux.values(), torch.zeros((), device=loss.device))
     return total, metrics
@@ -239,6 +295,7 @@ def loss_fn(params, cfg: C.ModelConfig, batch: Dict[str, torch.Tensor],
 def prefill(params, cfg: C.ModelConfig, tokens: torch.Tensor,
             caches: List[dict], impl: str = "kernel"):
     """Full prefill; returns (last-token logits (B, ...), caches)."""
+    params = _gathered(params)
     x, _ = _trunk(params, cfg, tokens, None, caches, "full", impl)
     return unembed(params, cfg, x[:, -1:])[:, 0], caches
 
@@ -246,6 +303,7 @@ def prefill(params, cfg: C.ModelConfig, tokens: torch.Tensor,
 def decode_step(params, cfg: C.ModelConfig, caches: List[dict],
                 tokens: torch.Tensor, positions: torch.Tensor):
     """One decode step.  tokens: (B,) or (B, K); positions: (B,)."""
+    params = _gathered(params)
     x, _ = _trunk(params, cfg, tokens, positions, caches, "decode",
                   "kernel")
     return unembed(params, cfg, x)[:, 0], caches

@@ -2,12 +2,14 @@
 ``repro/models/params.py``.
 
 Modules describe their parameters once as a nested dict of ``Spec``s
-(shape + logical axes + init style); ``init_params`` materializes a
-tree of tensors from it.  Every leaf draws from its own
-``torch.Generator`` seeded from the model seed and the leaf's path, so
-a parameter does not depend on which other leaves exist.  The numbers
-differ from ``jax.random``'s: tests that need both packages on the same
-weights carry them over with ``repro_torch.bridge``.
+(shape + logical axes + init style).  From one spec tree we derive:
+
+  * concrete parameters  (``init_params``: the reference's draws, bit
+                          for bit, from ``repro_torch.random``)
+  * abstract parameters  (``abstract_params``: meta tensors, no
+                          allocation; the dry-run's stand-ins)
+  * logical-axis tree    (``axes_tree``, which ``models.sharding`` maps
+                          onto a device mesh)
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import random as R
 from repro_torch.device import resolve_device
 
 
@@ -44,35 +47,50 @@ def map_specs_with_path(fn, tree: SpecTree, path: str = ""):
             for k, v in tree.items()}
 
 
-def _path_seed(seed: int, path: str) -> int:
-    digest = hashlib.sha256(f"{seed}:{path}".encode()).digest()
-    return int.from_bytes(digest[:8], "little") & ((1 << 63) - 1)
+def _path_key(key: torch.Tensor, path: str) -> torch.Tensor:
+    """The reference's per-leaf key: ``fold_in`` of the first 4 bytes of
+    sha256(path), little-endian."""
+    digest = hashlib.sha256(path.encode()).digest()
+    return R.fold_in(key, int.from_bytes(digest[:4], "little"))
 
 
 def init_params(specs: SpecTree, seed: int, dtype=torch.float32,
                 device=None):
     """Materialize parameters for a spec tree (deterministic in seed and
-    path).  Draws happen in float32 on ``device`` (the card unless one is
-    named) and are then cast."""
+    path): the weights ``repro.models.params.init_params`` draws from
+    ``jax.random.PRNGKey(seed)``, bit for bit.  Draws happen in float32
+    on ``device`` (the card unless one is named), leaf by leaf and in
+    chunks, and are then cast."""
     device = resolve_device(device)
+    key = R.prng_key(seed, device)
 
     def init_one(path: str, s: Spec):
         if s.init == "zeros":
             return torch.zeros(s.shape, dtype=dtype, device=device)
         if s.init == "ones":
             return torch.ones(s.shape, dtype=dtype, device=device)
-        gen = torch.Generator(device=device)
-        gen.manual_seed(_path_seed(seed, path))
-        x = torch.empty(s.shape, dtype=torch.float32, device=device)
+        k = _path_key(key, path)
         if s.init == "embed":
-            return (x.normal_(generator=gen) * 0.02).to(dtype)
+            return (R.normal(k, s.shape) * 0.02).to(dtype)
         # normal / scaled: truncated-normal with 1/sqrt(fan_in) scaling
         fan_in = s.shape[s.scale_dim] if s.init == "scaled" else (
             s.shape[0] if len(s.shape) > 1 else s.shape[-1])
-        torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
-        return (x * (1.0 / math.sqrt(max(fan_in, 1)))).to(dtype)
+        scale = R._r32(1.0 / math.sqrt(max(fan_in, 1)))
+        return (R.truncated_normal(k, -2.0, 2.0, s.shape) * scale).to(dtype)
 
     return map_specs_with_path(init_one, specs)
+
+
+def abstract_params(specs: SpecTree, dtype=torch.float32):
+    """Meta tensors shaped like the parameters: no allocation (the
+    dry-run's stand-ins)."""
+    return map_specs(
+        lambda s: torch.empty(s.shape, dtype=dtype, device="meta"), specs)
+
+
+def axes_tree(specs: SpecTree):
+    """Tree of logical-axis tuples matching the param tree structure."""
+    return map_specs(lambda s: s.axes, specs)
 
 
 def param_count(specs: SpecTree) -> int:

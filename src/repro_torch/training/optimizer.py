@@ -54,8 +54,7 @@ def lr_at(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 def adamw_init(params) -> AdamWState:
     """Step 0 and float32 zero moments shaped like ``params``."""
     leaf = tree_leaves(params)[0]
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,  # noqa: E731
-                                  device=p.device)
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
     return AdamWState(step=torch.zeros((), dtype=torch.int32,
                                        device=leaf.device),
                       mu=tree_map(zeros, params), nu=tree_map(zeros, params))

@@ -6,6 +6,15 @@ with ``torch.autograd.grad`` over the parameter leaves, the counterpart
 of ``jax.value_and_grad``: nothing is accumulated into ``.grad`` and
 the state's tensors never require grad, so a step is a function from
 (state, batch) to a new state, as in the reference.
+
+On a mesh (``make_train_step(..., ctx=ShardingCtx)``) the parameters
+and AdamW moments are DTensors with ``placements_for`` their axes and
+the batch is a DTensor split along its rows.  Each rank runs the model
+on its shard of the batch under the context's ``local`` view: a layer's
+weights are all-gathered as it runs (again in the backward, under
+remat) and its gradients come back summed over the batch shards and
+re-sharded, FSDP-style; the loss is each shard's share of the whole
+batch's, and the optimizer updates each rank's shards.
 """
 from __future__ import annotations
 
@@ -13,8 +22,11 @@ import time
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.models import model as M
+from repro_torch.models import sharding
 from repro_torch.models.config import ModelConfig
 from repro_torch.training.optimizer import (AdamWConfig, AdamWState,
                                             adamw_init, adamw_update)
@@ -52,24 +64,29 @@ def value_and_grad(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
-                    remat: bool = True, grad_accum: int = 1) -> Callable:
+                    remat: bool = True, grad_accum: int = 1,
+                    ctx: Optional[sharding.ShardingCtx] = None) -> Callable:
     """Returns train_step(state, batch) -> (state, metrics).
 
     ``grad_accum`` > 1 splits the batch into that many micro-batches
     along its first dim and sums their float32 gradients (and losses)
     before dividing, so activation memory scales 1/grad_accum at
     unchanged math; the metrics then hold the mean loss as "nll", as the
-    reference's do."""
+    reference's do.
 
-    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+    With ``ctx`` the step runs on its mesh: state and batch are DTensors
+    (see the module's docstring) and the metrics are whole-batch values
+    on every rank.  Micro-batches then split each rank's shard."""
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]):
         if grad_accum <= 1:
             loss, metrics, grads = value_and_grad(state.params, cfg, batch,
                                                   remat)
         else:
             micro = {k: v.reshape((grad_accum, v.shape[0] // grad_accum)
                                   + v.shape[1:]) for k, v in batch.items()}
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), state.params)
+            grads = tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), state.params)
             loss = torch.zeros((), device=batch["weights"].device)
             for i in range(grad_accum):
                 loss_i, _m, g = value_and_grad(
@@ -85,7 +102,22 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         metrics = {"loss": loss, **metrics, **opt_metrics}
         return TrainState(new_params, new_opt), metrics
 
-    return train_step
+    if ctx is None:
+        return step
+
+    def sharded_step(state: TrainState, batch: Dict[str, DTensor]):
+        local = {k: sharding.batch_shard(v) for k, v in batch.items()}
+        with sharding.use_sharding(ctx.local(batch["tokens"].placements)):
+            # plain 0-d tensors (the step count, lr) act as replicated
+            with implicit_replication():
+                new_state, metrics = step(state, local)
+            shares = {k: sharding.batch_sum(v) for k, v in metrics.items()
+                      if k not in ("grad_norm", "lr")}
+        gnorm = metrics["grad_norm"]
+        return new_state, {**metrics, **shares, "grad_norm": (
+            gnorm.full_tensor() if isinstance(gnorm, DTensor) else gnorm)}
+
+    return sharded_step
 
 
 def train_loop(cfg: ModelConfig, opt_cfg: AdamWConfig, data_iter,

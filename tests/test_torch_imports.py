@@ -1,7 +1,8 @@
 """Import hygiene of the port: nothing under ``src/repro_torch/``, no
 ``examples/torch_*.py`` and not ``chip_smoke.py`` imports ``jax`` or
 anything of the JAX package ``repro``, and importing the port's engine,
-trainer, cluster simulator or diagnostics loads neither."""
+trainer, cluster simulator, diagnostics, sharding or dry-run loads
+neither."""
 import ast
 import pathlib
 import subprocess
@@ -46,7 +47,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.configs, repro_torch.kernels.ops, "
             "repro_torch.training.checkpoint, repro_torch.data, "
             "repro_torch.launch.train, repro_torch.core.sim, "
-            "repro_torch.core.diagnostics; "
+            "repro_torch.core.diagnostics, repro_torch.models.sharding, "
+            "repro_torch.launch.mesh, repro_torch.launch.comm_analysis, "
+            "repro_torch.launch.dryrun, repro_torch.random; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = {"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin"}

@@ -611,10 +611,13 @@ def test_launch_train_debug_on_cpu(tmp_path, capsys):
     assert capsys.readouterr().out.count("{'step':") == 3
 
 
-def test_launch_train_refuses_multi_pod():
+def test_launch_train_refuses_multi_pod(capsys):
+    """The 2x16x16 mesh needs 512 ranks: on one, the launcher refuses and
+    names the world size (as it does for 16x16 without --multi-pod)."""
     with pytest.raises(SystemExit):
-        launch_train.main(["--arch", "qwen3-0.6b", "--debug",
-                           "--torch-device", "cpu", "--multi-pod"])
+        launch_train.main(["--arch", "qwen3-0.6b", "--torch-device", "cpu",
+                           "--multi-pod"])
+    assert "world size 512" in capsys.readouterr().err
 
 
 # ------------------------------------------------------------ kernels
