@@ -203,6 +203,31 @@ Phases, each printing one JSON line:
             decode step, and a 512-token prefill and a 4-slot decode
             step of hymba-1.5b and of xlstm-1.3b.
 
+Opt-in, not among the default phases (it needs four cards):
+
+   tp4      ``--only tp4`` on four cards of one host: 4 NCCL ranks (one
+            process a card) run the sharded train step of full-width
+            qwen3-0.6b, 8 x 1024 tokens a step, on (data, model) meshes
+            (4, 1), (1, 4) and (2, 2): tensor-, sequence- and
+            expert-parallel over ``model`` (``models.sharding``).  Each
+            against the unsharded step on one card from the same weights
+            and batches: float32 at "highest", loss and grad norm of 3
+            steps within ``TRAIN_ACCUM_RTOL``; bf16, tokens/s (best of 3
+            steps), the largest peak memory over the ranks and the loss
+            within 1e-2 relative of one card's bf16 step.  granite-moe-
+            3b-a800m in bf16 at (1, 4) (10 experts a rank), the same
+            numbers, against one card's loss and gradient of the first
+            batch (its whole step, float32 moments and all, does not fit
+            one card).  The dry-run against the real mesh: one more bf16
+            qwen3-0.6b step at (2, 2) in the dry-run's placements under
+            ``comm_analysis.StepRecorder`` gives the real run's
+            collective bytes by kind; a child process runs the same step
+            on a fake 4-rank group under ``FakeTensorMode`` through the
+            dry-run's ``input_specs`` and ``step_fn``: its bytes must
+            equal the real run's, and its arguments plus temporaries are
+            printed beside rank 0's peak memory.  Fewer than 4 cards
+            fail the phase.
+
 Then the line ``{"kernels": [...]}``, the nvidia-smi line, and as the
 last line ``{"ok": true, "device": {...}}``.  ``--only kernels,timing``
 (say) runs the build and just those phases, for a quick check after a
@@ -382,6 +407,15 @@ SHARD_INIT_ARCHS = ("qwen3-0.6b", "gemma3-4b", "granite-moe-3b-a800m")
 SHARD_DRYRUN = ("qwen3-0.6b:train_4k:pod", "granite-moe-3b-a800m:train_4k:pod",
                 "gemma3-4b:decode_32k:pod", "gemma3-4b:decode_32k:multipod")
 SHARD_DRYRUN_TIMEOUT = 200
+# the tp4 phase (opt-in, four cards): full-width qwen3-0.6b on these
+# (data, model) meshes, granite-moe-3b-a800m at (1, 4), each against the
+# unsharded step on one card; bf16 losses within this of one card's; the
+# dry-run's fake-group step at (2, 2) against the real one; the phase's
+# ranks must end within TP4_TIMEOUT seconds
+TP4_MESHES = ((4, 1), (1, 4), (2, 2))
+TP4_GRANITE_MESH, TP4_DRYRUN_MESH = (1, 4), (2, 2)
+TP4_BF16_RTOL = 1e-2
+TP4_TIMEOUT = 600
 # full-width f32 step: kernel logits vs plain logits, relative to the
 # logits' scale.  The two differ only in the order of the attention's
 # float32 sums (~1e-6 relative per call); 28 layers of residual updates
@@ -2983,6 +3017,308 @@ def shard_dryrun(out_dir, rcs, logs):
         raise AssertionError(f"the dry-run failed (exits {rcs})")
 
 
+# ------------------------------------------------------------ tp4
+# the dry-run's method on a fake 4-rank group (argv: config, mesh shape,
+# batch, sequence, output path), run as a child process on the CPU
+TP4_FAKE = r"""
+import json, sys
+import torch.distributed as dist
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from repro_torch.configs import InputShape, get_config
+from repro_torch.launch import dryrun
+from repro_torch.launch.comm_analysis import StepRecorder
+from repro_torch.launch.mesh import make_debug_mesh
+from repro_torch.models import sharding
+arch, mesh, batch, seq, out = sys.argv[1:6]
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+cfg, shape = get_config(arch), InputShape("tp4", int(seq), int(batch), "train")
+ctx = sharding.ShardingCtx(make_debug_mesh(*json.loads(mesh)))
+rec = StepRecorder()
+with FakeTensorMode(allow_non_fake_inputs=True):
+    kwargs = dryrun.input_specs(cfg, shape, ctx)
+    fn = dryrun.step_fn(cfg, shape, ctx)
+    rec.own(kwargs)
+    with rec:
+        fn(**kwargs)
+    args = dryrun._local_bytes(kwargs)
+json.dump({"collectives": rec.collective_report(), "argument_bytes": args,
+           "temp_bytes": rec.peak_bytes}, open(out, "w"))
+dist.destroy_process_group()
+"""
+
+
+def tp4_phase(torch):
+    """The tp4 phase (see the module's docstring): the fake-group child
+    and the 4 NCCL ranks run at once; rank 0 writes the ranks' results,
+    which are checked and printed here."""
+    import math
+    import multiprocessing
+    import socket
+    n = torch.cuda.device_count()
+    if n < 4:
+        raise AssertionError(f"the tp4 phase needs 4 cards; this host "
+                             f"has {n}")
+    out_dir = ROOT / "build" / "chip_smoke_tp4"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fake_out = out_dir / "fake.json"
+    with open(out_dir / "fake.log", "w") as log:
+        child = subprocess.Popen(
+            [sys.executable, "-c", TP4_FAKE, "qwen3-0.6b",
+             json.dumps(TP4_DRYRUN_MESH), str(TRAIN_BATCH), str(TRAIN_SEQ),
+             str(fake_out)], env=dict(os.environ, PYTHONPATH=str(SRC),
+                                      OMP_NUM_THREADS="1"),
+            stdout=log, stderr=subprocess.STDOUT)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    mp = multiprocessing.get_context("spawn")
+    ranks = [mp.Process(target=tp4_rank, args=(r, port, str(out_dir)))
+             for r in range(4)]
+    t0 = time.perf_counter()
+    try:
+        for p in ranks:
+            p.start()
+        # a rank that fails leaves the others waiting in a collective:
+        # stop them all at once
+        while (any(p.is_alive() for p in ranks)
+               and not any(p.exitcode for p in ranks)
+               and time.perf_counter() - t0 < TP4_TIMEOUT):
+            time.sleep(1)
+        if all(p.exitcode == 0 for p in ranks):
+            child.wait(timeout=max(TP4_TIMEOUT - (time.perf_counter() - t0),
+                                   1))
+    finally:
+        for p in ranks:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    codes = [p.exitcode for p in ranks]
+    if codes != [0] * 4 or child.returncode != 0:
+        print((out_dir / "fake.log").read_text()[-3000:], file=sys.stderr)
+        raise AssertionError(f"the tp4 ranks exited {codes}, the fake-group "
+                             f"child {child.returncode}")
+    res = json.loads((out_dir / "rank0.json").read_text())
+    fake = json.loads(fake_out.read_text())
+    card = nvidia_smi()
+    ok = True
+    for run in res["runs"]:
+        base = res["one_card"][f"{run['model']}/{run['dtype']}"]
+        errs = [max(rel_err(s[k], u[k]) for k in ("loss", "grad_norm"))
+                if run["dtype"] == "float32" else rel_err(s["loss"],
+                                                          u["loss"])
+                for s, u in zip(run["steps"], base["steps"])]
+        tol = (TRAIN_ACCUM_RTOL if run["dtype"] == "float32"
+               else TP4_BF16_RTOL)
+        # granite's one-card baseline is the first step's loss alone
+        run_ok = (max(errs) <= tol and len(errs) == len(base["steps"])
+                  and all(math.isfinite(s["loss"]) for s in run["steps"]))
+        ok &= run_ok
+        emit("tp4_train", **run, rel_errs=errs, tol=tol,
+             one_card=base, card=card, ok=run_ok)
+    real = res["dryrun"]
+    same = real["collectives"] == fake["collectives"]
+    ok &= same
+    fake_bytes = fake["argument_bytes"] + fake["temp_bytes"]
+    emit("tp4_dryrun", model="qwen3-0.6b", dtype="bfloat16",
+         mesh=list(TP4_DRYRUN_MESH), batch=[TRAIN_BATCH, TRAIN_SEQ],
+         real_collectives=real["collectives"],
+         fake_collectives=fake["collectives"], equal=same,
+         fake_argument_bytes=fake["argument_bytes"],
+         fake_temp_bytes=fake["temp_bytes"],
+         real_rank0_peak_bytes=real["rank0_peak_bytes"],
+         fake_over_real=fake_bytes / real["rank0_peak_bytes"],
+         card=card, ok=same)
+    emit("tp4_done", seconds=time.perf_counter() - t0, ok=ok)
+    if not ok:
+        raise AssertionError("the tp4 phase failed (see tp4_train and "
+                             "tp4_dryrun)")
+
+
+def tp4_rank(rank, port, out_dir):
+    """One of the tp4 phase's 4 NCCL ranks, on card ``rank``."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=4)
+    try:
+        res = tp4_runs(torch, dist, rank)
+        if rank == 0:
+            with open(pathlib.Path(out_dir) / "rank0.json", "w") as f:
+                json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def tp4_runs(torch, dist, rank):
+    """Every rank: the one-card steps (one model and dtype a rank, at
+    once), then each sharded run, then the dry-run's step at (2, 2)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_lm_batches
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import sharding
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train_loop as T
+    qwen, granite = get_config("qwen3-0.6b"), get_config(
+        "granite-moe-3b-a800m")
+    f32, bf16 = torch.float32, torch.bfloat16
+    batches = {cfg.name: [next(it) for _ in range(TRAIN_STEPS)] for cfg, it
+               in ((c, synthetic_lm_batches(c.vocab_size, TRAIN_BATCH,
+                                            TRAIN_SEQ, device="cuda"))
+                   for c in (qwen, granite))}
+    from repro_torch.tree import tree_map
+    held = {}
+
+    def weights(cfg, dtype):
+        """The drawn weights on the card; one draw held on the host, so
+        no run's peak memory counts a whole copy it does not use."""
+        key = (cfg.name, dtype)
+        if key not in held:
+            held.clear()
+            held[key] = tree_map(lambda t: t.cpu(),
+                                 M.init(cfg, 0, dtype, "cuda"))
+        return tree_map(lambda t: t.to("cuda"), held[key])
+
+    def grads(cfg, dtype):
+        """One card's loss and gradient norm of the first batch, no
+        update (granite's whole bf16 step does not fit one card: its
+        float32 moments, old and new, and the update's float32
+        temporaries pass 80 GB)."""
+        params = weights(cfg, dtype)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, _m, g = T.value_and_grad(params, cfg, batches[cfg.name][0])
+        gnorm = O.global_norm(g)
+        torch.cuda.synchronize()
+        row = dict(loss=float(loss), grad_norm=float(gnorm),
+                   wall_s=time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        del params, g
+        gc.collect()
+        torch.cuda.empty_cache()
+        return [row], peak
+
+    def run(cfg, dtype, mesh=None):
+        params = weights(cfg, dtype)
+        ctx = None
+        if mesh is not None:
+            ctx = sharding.ShardingCtx(make_debug_mesh(*mesh))
+            params = sharding.distribute(ctx, params, M.param_axes(cfg))
+        state = T.TrainState(params, O.adamw_init(params))
+        step = T.make_train_step(cfg, O.AdamWConfig(**TRAIN_OPT), ctx=ctx)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rows = []
+        for b in batches[cfg.name]:
+            if ctx is not None:
+                b = sharding.distribute(ctx, b, {k: ("batch", "seq")
+                                                 for k in b})
+            state, m, wall = timed_step(torch, step, state, b)
+            rows.append(dict(loss=m["loss"], grad_norm=m["grad_norm"],
+                             wall_s=wall))
+        peak = torch.cuda.max_memory_allocated()
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        return rows, peak
+
+    jobs = [(run, qwen, f32), (run, qwen, bf16), (grads, granite, bf16)]
+    mine = {}
+    if rank < len(jobs):
+        fn, cfg, dtype = jobs[rank]
+        rows, peak = fn(cfg, dtype)
+        best = min(r["wall_s"] for r in rows)
+        mine = {f"{cfg.name}/{str(dtype).split('.')[-1]}": dict(
+            steps=rows, tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / best,
+            peak_memory_gb=peak / 1e9,
+            update=fn is run)}
+    gathered = [None] * 4
+    dist.all_gather_object(gathered, mine)
+    one_card = {k: v for g in gathered for k, v in g.items()}
+
+    runs, dry = [], None
+    plan = [(qwen, dt, mesh) for dt in (f32, bf16) for mesh in TP4_MESHES]
+    plan.append((granite, bf16, TP4_GRANITE_MESH))
+    t0 = time.perf_counter()
+    for cfg, dtype, mesh in plan:
+        if cfg is granite and dry is None:   # while qwen's bf16 is held
+            dry = tp4_dryrun_step(torch, qwen, weights(qwen, bf16),
+                                  batches[qwen.name][0])
+        rows, peak = run(cfg, dtype, mesh)
+        if rank == 0:
+            emit("tp4_progress", model=cfg.name, mesh=list(mesh),
+                 dtype=str(dtype), seconds=time.perf_counter() - t0)
+        walls = torch.tensor([r["wall_s"] for r in rows], device="cuda")
+        dist.all_reduce(walls, op=dist.ReduceOp.MAX)
+        peaks = [None] * 4
+        dist.all_gather_object(peaks, peak)
+        for r, w in zip(rows, walls.tolist()):
+            r["wall_s"] = w                 # the slowest rank's
+        best = min(r["wall_s"] for r in rows)
+        runs.append(dict(model=cfg.name, dtype=str(dtype).split(".")[-1],
+                         mesh=list(mesh), batch=[TRAIN_BATCH, TRAIN_SEQ],
+                         steps=rows,
+                         tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / best,
+                         peak_memory_gb_by_rank=[p / 1e9 for p in peaks],
+                         max_peak_memory_gb=max(peaks) / 1e9))
+    return dict(one_card=one_card, runs=runs, dryrun=dry)
+
+
+def tp4_dryrun_step(torch, cfg, full, batch):
+    """One bf16 step at ``TP4_DRYRUN_MESH`` in the dry-run's placements
+    (weights ZeRO-1, moments split over both axes) and its ``step_fn``,
+    under ``StepRecorder``: the collective bytes by kind and rank 0's
+    peak memory."""
+    from repro_torch.configs import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.comm_analysis import StepRecorder
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import sharding
+    from repro_torch.training.optimizer import AdamWState
+    from repro_torch.training.train_loop import TrainState
+    from repro_torch.tree import tree_map
+    shape = InputShape("tp4", TRAIN_SEQ, TRAIN_BATCH, "train")
+    ctx = sharding.ShardingCtx(make_debug_mesh(*TP4_DRYRUN_MESH))
+    assert cfg.param_count() < 8e9          # the dry-run's ZeRO-1 regime
+    zero1 = sharding.ShardingCtx(ctx.mesh, tuple(ctx.rules.items()),
+                                 fsdp=False)
+    axes = M.param_axes(cfg)
+    moments = [sharding.distribute(ctx, tree_map(
+        lambda t: torch.zeros_like(t, dtype=torch.float32), full), axes)
+        for _ in range(2)]
+    state = TrainState(sharding.distribute(zero1, full, axes), AdamWState(
+        torch.zeros((), dtype=torch.int32, device="cuda"), *moments))
+    batch = sharding.distribute(ctx, batch, {k: ("batch", "seq")
+                                             for k in batch})
+    step = dryrun.step_fn(cfg, shape, ctx)
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rec = StepRecorder()
+    rec.own((state, batch))
+    with rec:
+        step(state, batch)
+    torch.cuda.synchronize()
+    return dict(collectives=rec.collective_report(),
+                rank0_peak_bytes=torch.cuda.max_memory_allocated())
+
+
 # ------------------------------------------------------------ sim
 def sim_fit(torch, cfg, pa, pp):
     """The sim phase (a): the planner's ``h100`` entry fitted from the
@@ -3771,9 +4107,9 @@ def main() -> int:
         "--only", default=",".join(PHASES),
         help="comma-separated phases to run after the build, of "
         f"{', '.join(PHASES)} (default: all; the kernels line is printed "
-        "only when all run)")
+        "only when all run), or tp4 (four cards)")
     only = set(parser.parse_args().only.split(","))
-    if not only <= set(PHASES):
+    if not only <= set(PHASES) | {"tp4"}:
         parser.error(f"unknown phases {sorted(only - set(PHASES))}")
     try:
         import torch
@@ -3937,6 +4273,10 @@ def main() -> int:
         shard_phase(torch, {"flash_prefill": fp, "paged_attention": pa,
                             "paged_prefill": pp}, dryrun)
         emit("shard_done", seconds=time.perf_counter() - t0)
+
+    if "tp4" in only:
+        starts.append(("tp4", time.perf_counter()))
+        tp4_phase(torch)
 
     ends = [t for _, t in starts[1:]] + [time.perf_counter()]
     emit("phase_seconds", **{name: end - t0 for (name, t0), end

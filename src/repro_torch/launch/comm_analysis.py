@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import weakref
 from collections import defaultdict
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 from torch.distributed.tensor import DTensor
@@ -57,8 +57,9 @@ def _nbytes(ts) -> int:
 
 
 class StepRecorder(TorchDispatchMode):
-    """Records, while active: collective result bytes by kind, the count
-    of every op, and the bytes of storages made by ops that are still
+    """Records, while active: collective result bytes and shapes by kind
+    (the ``_c10d_functional`` ops of ``_KIND``: not ``wait_tensor`` nor
+    the wrappers that move nothing), the count of every op, and the bytes of storages made by ops that are still
     alive (``live_bytes``) and their peak (``peak_bytes``).  Storages
     made before it started are not counted; pass the step's arguments to
     ``own`` first, so their views are not counted either."""
@@ -66,6 +67,7 @@ class StepRecorder(TorchDispatchMode):
     def __init__(self):
         super().__init__()
         self.coll: Dict[str, int] = defaultdict(int)
+        self.shapes: Dict[str, List[tuple]] = defaultdict(list)
         self.ops: Dict[str, int] = defaultdict(int)
         self.live_bytes = 0
         self.peak_bytes = 0
@@ -106,8 +108,10 @@ class StepRecorder(TorchDispatchMode):
         self.last_op = f"{ns}.{name}"
         out = func(*args, **(kwargs or {}))
         self.ops[self.last_op] += 1
-        if ns == "_c10d_functional" and name != "wait_tensor":
-            self.coll[_KIND.get(name, name)] += _nbytes(_tensors(out))
+        if ns == "_c10d_functional" and name in _KIND:
+            self.coll[_KIND[name]] += _nbytes(_tensors(out))
+            self.shapes[_KIND[name]] += [tuple(t.shape)
+                                         for t in _tensors(out)]
         for t in _tensors(out):
             if t.device.type == "meta":
                 continue
@@ -131,7 +135,6 @@ class StepRecorder(TorchDispatchMode):
     def collective_report(self) -> Dict[str, int]:
         """Per-device collective bytes by kind, plus ``total``."""
         out = {k: self.coll.get(k, 0) for k in COLLECTIVES}
-        out.update({k: v for k, v in self.coll.items() if k not in out})
         out["total"] = sum(out.values())
         return out
 

@@ -25,8 +25,11 @@ compiled module) has no counterpart: nothing is compiled, and
 ``analytic`` is the work model both packages use.  The inputs follow
 the reference's ``input_specs``, its ZeRO-1 / FSDP regime by size and
 its micro-batching; the step is the port's (``training.train_loop``:
-each rank runs its batch shard with every layer's weights gathered as
-it runs, so these bytes are the port's, not the reference's).
+each rank runs its batch shard, tensor-, sequence- and expert-parallel
+over ``model`` as ``models.sharding`` describes, its weights gathered
+over the batch dims as it runs; MLA, Hymba and xLSTM layers gather
+theirs over ``model`` too), so these bytes are the port's, not the
+reference's.
 
 Run it in a process of its own: it makes the fake process group, which
 must not meet a real one.
@@ -127,8 +130,8 @@ def step_fn(cfg: ModelConfig, shape: InputShape,
         return make_train_step(cfg, AdamWConfig(), remat=True,
                                grad_accum=accum, ctx=ctx)
 
-    def local(tokens: DTensor):
-        return sharding.use_sharding(ctx.local(tokens.placements))
+    def local(tokens: DTensor, decode: bool = False):
+        return sharding.use_sharding(ctx.local(tokens.placements, decode))
 
     if shape.kind == "prefill":
         def prefill_step(params, caches, tokens):
@@ -138,7 +141,7 @@ def step_fn(cfg: ModelConfig, shape: InputShape,
         return prefill_step
 
     def serve_step(params, caches, tokens, positions):
-        with local(tokens):
+        with local(tokens, decode=True):
             return M.decode_step(params, cfg, caches,
                                  sharding.batch_shard(tokens),
                                  sharding.batch_shard(positions))

@@ -26,6 +26,22 @@ of the cache dict they are given, cast to the cache's dtype, and return
 that dict.  JAX drops the ring writes of all
 but the last ``window`` prompt tokens with ``mode="drop"``; here only
 those last ``window`` rows are selected and written.
+
+Inside a tensor-parallel step (``sharding.tensor_parallel()``; see
+``models.sharding``) DENSE, SWA and MOE layers (``TP_LAYER_TYPES``) run
+on their rank's ``model`` shards, between layers on the rank's own rows
+of the sequence: the norms run on those rows; the attention gathers the
+rows, projects this rank's query heads (``layers.kv_heads_for`` picks
+their KV heads), attends over the whole sequence and sums the ranks'
+row-parallel outputs back into each rank's rows; the MLP and the MoE
+FFN likewise.  Where the query heads do not divide the model axis
+(gemma3-4b: H 8 at 16) the attention's weights come whole and each rank
+attends for its own query rows against the gathered keys (the
+reference's fallback: query blocks split over ``seq``).  A decode step
+has one row: it runs the same shards on replicated rows, reads its
+local KV heads from the cache where the cache splits them, and sums the
+partial outputs with an all-reduce.  The other layer types gather their
+weights (``models.model``) and run as below.
 """
 from __future__ import annotations
 
@@ -34,10 +50,12 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.models import config as C
-from repro_torch.models import layers, mla, moe, ssm
+from repro_torch.models import layers, mla, moe, sharding, ssm
 
 LAYER_TYPES = (C.DENSE, C.SWA, C.MOE, C.MLA_DENSE, C.MLA_MOE, C.HYMBA,
                C.HYMBA_GLOBAL, C.MLSTM, C.SLSTM)
+# the layer types a tensor-parallel step runs on model shards
+TP_LAYER_TYPES = (C.DENSE, C.SWA, C.MOE)
 # the recurrent states, which ``alloc_cache`` keeps in float32
 STATE_FIELDS = ("C", "n", "m", "h", "c")
 
@@ -133,16 +151,33 @@ def alloc_cache(shapes: Dict[str, Tuple[tuple, tuple]], dtype,
 # ------------------------------------------------------------------ attention paths
 def _attn_full(p, cfg, x, positions, cache, window: int, impl: str):
     """Full-sequence attention (prefill or training); optionally fills
-    the cache."""
-    s = x.shape[1]
-    q, k, v = layers.attn_qkv(p, cfg, x, positions)
+    the cache.  positions: (B, S), every row's, though x may hold only
+    this rank's rows (sequence parallelism)."""
+    split = p["wq"].shape[1] != cfg.n_heads       # query heads over model
+    xg = sharding.model_rows(x)
+    q_offset = 0
+    if split or not sharding.tensor_parallel():
+        q = layers.attn_q(p, cfg, xg, positions)
+    else:                 # whole weights: this rank's query rows only
+        q = layers.attn_q(p, cfg, x, sharding.own_rows(positions))
+        q_offset = sharding.tp_rank() * x.shape[1]
+    heads = layers.kv_heads_for(p, cfg, q.shape[2])
+    # a cache takes every KV head the weights hold; the attention only
+    # the ones these query heads read
+    k, v = layers.attn_kv(p, cfg, xg, positions,
+                          heads if cache is None else None)
+    ka, va = ((k, v) if cache is None or heads is None
+              else (k[:, :, heads], v[:, :, heads]))
     if impl == "train":
-        o = layers.attn_causal_plain(q, k, v, window=window,
-                                     softcap=cfg.attn_logit_softcap)
+        o = layers.attn_causal_plain(q, ka, va, window=window,
+                                     softcap=cfg.attn_logit_softcap,
+                                     q_offset=q_offset)
     else:
-        o = layers.attn_causal(q, k, v, window=window,
-                               softcap=cfg.attn_logit_softcap, impl=impl)
+        o = layers.attn_causal(q, ka, va, window=window,
+                               softcap=cfg.attn_logit_softcap,
+                               q_offset=q_offset, impl=impl)
     if cache is not None:
+        s = k.shape[1]
         ck, cv = cache["k"], cache["v"]
         if "pos" in cache:  # ring buffer: only the last `window` tokens
             keep_from = max(s - cfg.sliding_window, 0)
@@ -155,13 +190,17 @@ def _attn_full(p, cfg, x, positions, cache, window: int, impl: str):
         else:
             ck[:, :s] = k
             cv[:, :s] = v
-    return layers.attn_out(p, o), cache
+    out = layers.attn_out(p, o)
+    return (sharding.sum_model_rows(out) if split else out), cache
 
 
 def _attn_decode(p, cfg, x, positions, cache, window: int):
     """One-token decode against a (possibly ring-buffer) cache, in plain
-    torch over the whole cache, as the JAX package computes it."""
-    q, k, v = layers.attn_qkv(p, cfg, x, positions[:, None])
+    torch over the whole cache, as the JAX package computes it.  The
+    cache holds the KV heads the weights hold."""
+    split = p["wq"].shape[1] != cfg.n_heads
+    q = layers.attn_q(p, cfg, x, positions[:, None])
+    k, v = layers.attn_kv(p, cfg, x, positions[:, None])
     bidx = torch.arange(x.shape[0], device=x.device)
     ck, cv = cache["k"], cache["v"]
     if "pos" in cache:
@@ -177,8 +216,12 @@ def _attn_decode(p, cfg, x, positions, cache, window: int):
         ck[bidx, positions.long()] = k[:, 0].to(ck.dtype)
         cv[bidx, positions.long()] = v[:, 0].to(cv.dtype)
         mask = layers.decode_mask(positions, ck.shape[1], window=window)
+    heads = layers.kv_heads_for(p, cfg, q.shape[2])
+    if heads is not None:
+        ck, cv = ck[:, :, heads], cv[:, :, heads]
     o = layers.attention(q, ck, cv, mask, softcap=cfg.attn_logit_softcap)
-    return layers.attn_out(p, o), cache
+    out = layers.attn_out(p, o)
+    return (sharding.sum_model_rows(out) if split else out), cache
 
 
 # ------------------------------------------------------------------ apply
@@ -259,7 +302,8 @@ def apply_layer(p: dict, cfg: C.ModelConfig, ltype: str, x: torch.Tensor,
     if "moe" in p:
         f, routing, _ = moe.moe_ffn(p["moe"], cfg.moe, h, cfg.act)
         return x + f, cache, routing
-    return x + layers.mlp(p["mlp"], h, cfg.act), cache, None
+    width = cfg.d_ff if ltype in TP_LAYER_TYPES else None
+    return x + layers.mlp(p["mlp"], h, cfg.act, width), cache, None
 
 
 def _fresh_mamba(cfg, x):

@@ -9,6 +9,15 @@ Plain functions on tensors; parameters arrive as dicts built from
 ``repro_torch.models.params.Spec`` trees in ``repro``'s layouts
 (``wq`` is ``(d, H, D)``, ``wo`` is ``(H, D, d)``), so weights carry
 over between the packages unchanged.
+
+Inside a tensor-parallel step (``sharding.tensor_parallel()``) a layer's
+weights are its rank's ``model`` shards (``sharding.local_params``):
+``wq``/``wo`` hold this rank's query heads where the head count divides
+the model axis, ``wk``/``wv`` its KV heads where theirs does too; where
+only the query heads divide, the K/V weights come whole and each rank
+projects just the KV heads its query heads read (``kv_heads_for``), and
+their gradients are partial sums over ``model``.  ``mlp`` is column-
+then row-parallel where its hidden width divides.
 """
 from __future__ import annotations
 
@@ -144,22 +153,22 @@ def attn_causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def attn_causal_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       *, window: int = 0, softcap: float = 0.0,
                       scale: Optional[float] = None, block_q: int = 512,
-                      block_k: int = 512,
-                      force_blockwise: bool = False) -> torch.Tensor:
-    """The JAX package's ``attn_causal`` (at ``q_offset`` 0) in plain
-    torch, the trainer's attention and MLA's: the dense masked
-    ``attention`` when Sq*Sk <= 2048**2, else ``_blockwise``, an online
-    softmax over (block_q, block_k) tiles that never holds the (Sq, Sk)
-    scores.  ``window`` > 0 keeps the keys ``kpos > qpos - window``;
-    ``softcap`` > 0 caps the logits with ``tanh``.  Q/K and V may differ
-    in width (MLA: 192 and 128).  No kernel is involved, on any device,
-    so autograd differentiates it."""
+                      block_k: int = 512, force_blockwise: bool = False,
+                      q_offset: int = 0) -> torch.Tensor:
+    """The JAX package's ``attn_causal`` in plain torch, the trainer's
+    attention and MLA's: the dense masked ``attention`` when Sq*Sk <=
+    2048**2, else ``_blockwise``, an online softmax over (block_q,
+    block_k) tiles that never holds the (Sq, Sk) scores.  ``window`` > 0
+    keeps the keys ``kpos > qpos - window``; ``softcap`` > 0 caps the
+    logits with ``tanh``; the queries sit at positions ``q_offset``
+    onwards.  Q/K and V may differ in width (MLA: 192 and 128).  No
+    kernel is involved, on any device, so autograd differentiates it."""
     sq, sk = q.shape[1], k.shape[1]
     if sq * sk <= 2048 * 2048 and not force_blockwise:
-        mask = causal_mask(sq, sk, window=window, device=q.device)[None]
+        mask = causal_mask(sq, sk, q_offset, window, device=q.device)[None]
         return attention(q, k, v, mask, softcap=softcap, scale=scale)
     return _blockwise(q, k, v, scale=scale, window=window, softcap=softcap,
-                      block_q=block_q, block_k=block_k)
+                      block_q=block_q, block_k=block_k, q_offset=q_offset)
 
 
 def mlstm_parallel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -184,7 +193,8 @@ def recording(*trees) -> bool:
 
 
 def _blockwise(q, k, v, *, scale, window=0, softcap=0.0, norm="softmax",
-               bias_q=None, bias_k=None, block_q=512, block_k=512):
+               bias_q=None, bias_k=None, block_q=512, block_k=512,
+               q_offset=0):
     """``repro.models.layers._blockwise``: every (q block, k block) pair
     is visited in order, as the reference's scans do, with the running
     max, sum and accumulator in float32.
@@ -229,7 +239,7 @@ def _blockwise(q, k, v, *, scale, window=0, softcap=0.0, norm="softmax",
 
     def sweep(q_blk, bq_blk, k, v, bias_k, qi):
         q32 = q_blk.float().reshape(b, bq, hkv, g, d) * scale
-        qpos = qi * bq + torch.arange(bq, device=dev)
+        qpos = q_offset + qi * bq + torch.arange(bq, device=dev)
         acc = torch.zeros(b, hkv, g, bq, dv, device=dev)
         m = torch.full((b, hkv, g, bq), NEG_INF, device=dev)
         den = torch.zeros(b, hkv, g, bq, device=dev)
@@ -303,19 +313,59 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(d, h * hd)).unflatten(-1, (h, hd))
 
 
+def attn_q(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor):
+    """Roped queries of the heads ``wq`` holds.  x: (B, S, d);
+    positions: (B, S).  Bias first, then ``qk_norm``, then RoPE."""
+    q = _proj(x, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    sin, cos = rope_freqs(positions, cfg.head_dim, cfg.rope_theta)
+    return apply_rope(q, sin, cos)
+
+
+def attn_kv(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
+            heads=None):
+    """Roped keys and values of the KV heads ``wk``/``wv`` hold, or of
+    their ``heads`` (a slice or a list) alone."""
+    wk, wv = p["wk"], p["wv"]
+    if heads is not None:
+        wk, wv = wk[:, heads], wv[:, heads]
+    k, v = _proj(x, wk), _proj(x, wv)
+    if cfg.qkv_bias:
+        bk, bv = p["bk"], p["bv"]
+        if heads is not None:
+            bk, bv = bk[heads], bv[heads]
+        k, v = k + bk, v + bv
+    if cfg.qk_norm:
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    sin, cos = rope_freqs(positions, cfg.head_dim, cfg.rope_theta)
+    return apply_rope(k, sin, cos), v
+
+
 def attn_qkv(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor):
     """Project to roped (q, k, v).  x: (B, S, d); positions: (B, S).
     Bias first, then ``qk_norm``, then RoPE."""
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
-    if cfg.qkv_bias:
-        q = q + p["bq"]
-        k = k + p["bk"]
-        v = v + p["bv"]
-    if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    sin, cos = rope_freqs(positions, cfg.head_dim, cfg.rope_theta)
-    return apply_rope(q, sin, cos), apply_rope(k, sin, cos), v
+    return (attn_q(p, cfg, x, positions),) + attn_kv(p, cfg, x, positions)
+
+
+def kv_heads_for(p: dict, cfg, n_q: int):
+    """The KV heads of ``wk`` that this rank's ``n_q`` query heads read:
+    None where ``wk`` holds exactly those (the whole model, or KV heads
+    split over ``model`` as the query heads are); else, ``wk`` whole, a
+    slice of them (whole groups, or one head a group shares) or, where
+    the split cuts groups unevenly, one KV head per query head."""
+    hkv = p["wk"].shape[1]
+    if n_q * cfg.n_kv_heads == hkv * cfg.n_heads:
+        return None
+    g = cfg.n_heads // cfg.n_kv_heads
+    lo = sharding.tp_rank() * n_q
+    if n_q % g == 0:
+        return slice(lo // g, (lo + n_q) // g)
+    if g % n_q == 0:
+        return slice(lo // g, lo // g + 1)
+    return [(lo + i) // g for i in range(n_q)]
 
 
 def attn_out(p: dict, o: torch.Tensor) -> torch.Tensor:
@@ -339,6 +389,16 @@ def activation(act: str, x: torch.Tensor) -> torch.Tensor:
     return F.silu(x) if act == "silu" else F.gelu(x, approximate="tanh")
 
 
-def mlp(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+def mlp(p: dict, x: torch.Tensor, act: str = "silu",
+        width: Optional[int] = None) -> torch.Tensor:
+    """The gated MLP.  Where the weights hold fewer hidden columns than
+    ``width`` (a model shard), x's rows are gathered before the
+    column-parallel products and the row-parallel partial outputs
+    summed into this rank's rows; whole weights run on x's rows as
+    they are."""
+    split = width is not None and p["w_gate"].shape[1] != width
+    if split:
+        x = sharding.model_rows(x)
     g = activation(act, x @ p["w_gate"])
-    return (g * (x @ p["w_in"])) @ p["w_out"]
+    out = (g * (x @ p["w_in"])) @ p["w_out"]
+    return sharding.sum_model_rows(out) if split else out

@@ -17,6 +17,18 @@ Entry points:
                      and the MoE aux losses, differentiable
   * ``prefill``      full causal pass over a prompt, fills the caches
   * ``decode_step``  one token per row against the caches
+
+Inside a tensor-parallel step (``models.sharding``) the embedding is
+looked up vocab-parallel (each rank its vocab slice, zeros elsewhere,
+summed into each rank's own rows), the logits are this rank's vocab
+slice and the cross-entropy is vocab-parallel (the max, the sum of
+exponentials and the target logit reduced over ``model``; the whole
+vocab's logits are never built).  Where the vocab does not divide the
+model axis, the embedding comes whole and each rank takes the loss of
+its own rows.  DENSE, SWA and MOE layers run on model shards; the other
+layer types (MLA, Hymba, xLSTM) take every weight whole in one branch,
+``_gathered_layer``.  ``prefill`` and ``decode_step`` then return this
+rank's vocab slice of the logits.
 """
 from __future__ import annotations
 
@@ -26,7 +38,6 @@ from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks, layers, moe, sharding
@@ -127,6 +138,8 @@ def embed(params, cfg: C.ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     summed (MusicGen)."""
     emb = params["embedding"]
     tokens = tokens.long()
+    if emb.shape[-2] != cfg.vocab_size:
+        return _embed_vocab_parallel(emb, cfg, tokens)
     if cfg.num_codebooks:
         x = emb[0][tokens[..., 0]]
         for k in range(1, cfg.num_codebooks):
@@ -135,19 +148,40 @@ def embed(params, cfg: C.ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     return emb[tokens]
 
 
+def _embed_vocab_parallel(emb, cfg: C.ModelConfig, tokens: torch.Tensor):
+    """The lookup of an embedding split over ``model`` by vocab: each
+    rank looks up the tokens of its slice (zeros for the others) over
+    every row of the batch shard, and the ranks' sums land in each
+    rank's own rows."""
+    v = emb.shape[-2]
+    if sharding.seq_parallel():
+        tokens = sharding.gather_model_values(tokens, 1)
+    lo = sharding.model_offset(cfg.vocab_size, v)
+    ids = tokens - lo
+    hit = ((ids >= 0) & (ids < v)).to(emb.dtype)[..., None]
+    ids = ids.clamp(0, v - 1)
+    if cfg.num_codebooks:
+        x = emb[0][ids[..., 0]] * hit[..., 0, :]
+        for k in range(1, cfg.num_codebooks):
+            x = x + emb[k][ids[..., k]] * hit[..., k, :]
+    else:
+        x = emb[ids] * hit
+    return sharding.sum_model_rows(x)
+
+
 def unembed(params, cfg: C.ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """x (B, S, d) -> logits (B, S, V), or (B, S, K, V) for codebooks."""
+    """x (B, S, d) -> logits (B, S, V), or (B, S, K, V) for codebooks:
+    this rank's vocab slice of them inside a tensor-parallel step."""
     nc = cfg.num_codebooks
     if cfg.tie_embeddings:
         emb = params["embedding"]
         if nc:
             return (x @ emb.reshape(-1, emb.shape[-1]).T).unflatten(
-                -1, (nc, cfg.vocab_size))
+                -1, (nc, -1))
         return x @ emb.T
     head = params["lm_head"]
     if nc:
-        return (x @ head.reshape(head.shape[0], -1)).unflatten(
-            -1, (nc, cfg.vocab_size))
+        return (x @ head.reshape(head.shape[0], -1)).unflatten(-1, (nc, -1))
     return x @ head
 
 
@@ -160,20 +194,48 @@ def layer_view(tree, i: int):
 
 
 def _gathered(params):
-    """The embedding, final norm and head as plain tensors: all-gathered
-    where they are DTensors (inside a sharded step), else as they are."""
+    """The embedding, final norm and head as plain tensors where they
+    are DTensors (inside a sharded step): all-gathered, or this rank's
+    model shards of them in a tensor-parallel step; else as they are."""
     if sharding.current() is None:
         return params
-    return {k: v if k.startswith("run_") else sharding.gather_params(v)
+    fetch = (sharding.local_params if sharding.tensor_parallel()
+             else sharding.gather_params)
+    return {k: v if k.startswith("run_") else fetch(v)
             for k, v in params.items()}
 
 
 def _layer(p_l, cfg: C.ModelConfig, ltype: str, x: torch.Tensor, **kw):
-    """One layer, its DTensor weights gathered first: inside the remat
-    region, so the backward gathers them again (FSDP's reshard after
-    forward)."""
-    return blocks.apply_layer(sharding.gather_params(p_l), cfg, ltype, x,
-                              **kw)
+    """One layer, its DTensor weights fetched first: inside the remat
+    region, so the backward fetches them again (FSDP's reshard after
+    forward).  A tensor-parallel step runs DENSE, SWA and MOE layers on
+    their model shards."""
+    if not sharding.tensor_parallel():
+        return blocks.apply_layer(sharding.gather_params(p_l), cfg, ltype,
+                                  x, **kw)
+    if ltype in blocks.TP_LAYER_TYPES:
+        return blocks.apply_layer(sharding.local_params(p_l), cfg, ltype,
+                                  x, **kw)
+    return _gathered_layer(p_l, cfg, ltype, x, **kw)
+
+
+def _gathered_layer(p_l, cfg: C.ModelConfig, ltype: str, x: torch.Tensor,
+                    **kw):
+    """A layer whose type has no tensor-parallel form yet (MLA, Hymba,
+    xLSTM: ROADMAP S3b) inside a tensor-parallel step: every weight
+    gathered whole, the layer run whole over the batch shard's rows on
+    every model rank, each rank keeping its own rows (its gradients
+    then partial sums over ``model``) and its MoE aux losses over
+    them."""
+    p = sharding.gather_params(p_l)
+    ctx = sharding.current()
+    xg = sharding.gather_model(x, 1) if ctx.sp else x
+    with sharding.use_sharding(ctx.without_tp()):
+        y, cache, r = blocks.apply_layer(p, cfg, ltype, xg, **kw)
+    if r is not None:
+        r = r._replace(rows=sharding.own_rows_mask(*xg.shape[:2],
+                                                   xg.device))
+    return sharding.own_rows(y), cache, r
 
 
 def _trunk(params, cfg: C.ModelConfig, tokens: torch.Tensor,
@@ -189,7 +251,8 @@ def _trunk(params, cfg: C.ModelConfig, tokens: torch.Tensor,
     params = _gathered(params)
     if mode == "full":
         b, s = tokens.shape[:2]
-        if positions is None:
+        if positions is None:   # every row's (the sequence may be split)
+            s *= sharding.tp_size() if sharding.seq_parallel() else 1
             positions = torch.arange(s, device=tokens.device).expand(b, s)
         x = embed(params, cfg, tokens)
         x = sharding.constrain(x, ("batch", "seq", None))
@@ -201,16 +264,19 @@ def _trunk(params, cfg: C.ModelConfig, tokens: torch.Tensor,
     for i, (ltype, n) in enumerate(cfg.layer_runs):
         run_p = params[f"run_{i}"]
         run_c = caches[i] if caches is not None else None
+        # a tensor-parallel layer reads its KV heads' split of the cache
+        heads_dim = (2 if sharding.tensor_parallel()
+                     and ltype in blocks.TP_LAYER_TYPES else None)
         for j in range(n):
             c_l = layer_view(run_c, j) if run_c is not None else None
-            c_use = sharding.gather_cache(c_l)
+            c_use = sharding.gather_cache(c_l, heads_dim)
             layer = functools.partial(
                 _layer, layer_view(run_p, j), cfg, ltype,
                 positions=positions, cache=c_use, mode=mode, impl=impl)
-            x, _, r = (checkpoint(layer, x, use_reentrant=False) if remat
+            x, _, r = (sharding.checkpoint(layer, x) if remat
                        else layer(x))
             if c_use is not c_l:
-                sharding.scatter_cache(c_l, c_use)
+                sharding.scatter_cache(c_l, c_use, heads_dim)
             if r is not None:
                 routings.append(r)
         if mode == "full":
@@ -259,6 +325,54 @@ def _nll_chunk(params, cfg: C.ModelConfig, x_chunk: torch.Tensor,
     return nll
 
 
+def _nll_vocab_parallel(params, cfg: C.ModelConfig, x_chunk: torch.Tensor,
+                        labels_chunk: torch.Tensor) -> torch.Tensor:
+    """``_nll_chunk`` from this rank's vocab slice of the logits of every
+    row of the chunk (gathered over ``model``): the max, the sum of
+    exponentials and the target logit reduced over ``model``.  Returns
+    the nll of the gathered rows, the same on every model rank."""
+    logits = unembed(params, cfg, sharding.model_rows(x_chunk)).float()
+    labels = sharding.gather_model_values(labels_chunk.long(), 1)
+    v = logits.shape[-1]
+    lo = sharding.model_offset(cfg.vocab_size, v)
+    m = sharding.max_model(logits.amax(-1))
+    se = sharding.reduce_model(torch.exp(logits - m[..., None]).sum(-1))
+    ids = labels - lo
+    hit = (ids >= 0) & (ids < v)
+    tgt = logits.gather(-1, ids.clamp(0, v - 1)[..., None])[..., 0]
+    tgt = sharding.reduce_model(torch.where(hit, tgt, 0.0))
+    nll = torch.log(se) + m - tgt
+    if cfg.num_codebooks:
+        nll = nll.mean(-1)
+    return nll
+
+
+def _weighted_nll_tp(params, cfg: C.ModelConfig, x: torch.Tensor,
+                     labels: torch.Tensor, w: torch.Tensor,
+                     ce_chunk: int) -> torch.Tensor:
+    """Under sequence parallelism: the weighted nll summed over the
+    batch shard's rows, the same on every model rank, chunk by
+    checkpointed chunk of this rank's rows.  Vocab-parallel where the
+    vocab splits; else each rank's own rows' sum, reduced."""
+    emb = params["embedding" if cfg.tie_embeddings else "lm_head"]
+    vocab_split = (emb.shape[-2] if cfg.tie_embeddings
+                   else emb.shape[-1]) != cfg.vocab_size
+    s = x.shape[1]
+    ck = min(ce_chunk, s)
+    if not (s % ck == 0 and s > ck):
+        ck = s
+    fn = functools.partial(
+        _nll_vocab_parallel if vocab_split else _nll_chunk, params, cfg)
+    total = torch.zeros((), device=x.device)
+    for i in range(0, s, ck):
+        xs, ls, ws = x[:, i:i + ck], labels[:, i:i + ck], w[:, i:i + ck]
+        nll = sharding.checkpoint(fn, xs, ls) if ck < s else fn(xs, ls)
+        if vocab_split:
+            ws = sharding.gather_model_values(ws, 1)
+        total = total + (nll * ws).sum()
+    return total if vocab_split else sharding.reduce_model(total)
+
+
 def loss_fn(params, cfg: C.ModelConfig, batch: Dict[str, torch.Tensor],
             remat: bool = True, ce_chunk: int = 512):
     """batch: tokens, labels, weights.  Returns (loss + the MoE aux
@@ -273,20 +387,25 @@ def loss_fn(params, cfg: C.ModelConfig, batch: Dict[str, torch.Tensor],
     x, _, aux = forward(params, cfg, batch["tokens"], mode="full",
                         impl="train", remat=remat)
     labels = batch["labels"]
-    s = x.shape[1]
-    ck = min(ce_chunk, s)
-    if s % ck == 0 and s > ck:
-        chunk = functools.partial(_nll_chunk, params, cfg)
-        nll = torch.cat([checkpoint(chunk, x[:, i:i + ck],
-                                    labels[:, i:i + ck], use_reentrant=False)
-                         for i in range(0, s, ck)], dim=1)
-    else:
-        nll = _nll_chunk(params, cfg, x, labels)
     w = batch["weights"].float()
     # inside a sharded step: this batch shard's share of the loss (the
     # step sums the shares; the weights' total is the whole batch's)
-    loss = (nll * w).sum() / torch.clamp(sharding.batch_sum(w.sum()),
-                                         min=1.0)
+    if sharding.seq_parallel():
+        wsum = sharding.batch_sum(sharding.reduce_model(w.sum()))
+        loss = _weighted_nll_tp(params, cfg, x, labels, w, ce_chunk) \
+            / torch.clamp(wsum, min=1.0)
+    else:
+        s = x.shape[1]
+        ck = min(ce_chunk, s)
+        if s % ck == 0 and s > ck:
+            chunk = functools.partial(_nll_chunk, params, cfg)
+            nll = torch.cat([sharding.checkpoint(chunk, x[:, i:i + ck],
+                                                 labels[:, i:i + ck])
+                             for i in range(0, s, ck)], dim=1)
+        else:
+            nll = _nll_chunk(params, cfg, x, labels)
+        loss = (nll * w).sum() / torch.clamp(sharding.batch_sum(w.sum()),
+                                             min=1.0)
     metrics = {"nll": loss, **aux}
     total = loss + sum(aux.values(), torch.zeros((), device=loss.device))
     return total, metrics
@@ -297,7 +416,10 @@ def prefill(params, cfg: C.ModelConfig, tokens: torch.Tensor,
     """Full prefill; returns (last-token logits (B, ...), caches)."""
     params = _gathered(params)
     x, _ = _trunk(params, cfg, tokens, None, caches, "full", impl)
-    return unembed(params, cfg, x[:, -1:])[:, 0], caches
+    last = x[:, -1:]
+    if sharding.seq_parallel():      # the last row is the last rank's
+        last = sharding.gather_model(last, 1)[:, -1:]
+    return unembed(params, cfg, last)[:, 0], caches
 
 
 def decode_step(params, cfg: C.ModelConfig, caches: List[dict],

@@ -27,10 +27,20 @@ details its results depend on:
 Every shape follows from (T, E, k, capacity), which the host knows:
 nothing here waits for the device (no ``.item()``, ``nonzero`` or
 boolean-mask indexing).
+
+Inside a tensor-parallel step (see ``models.sharding``) every model rank
+gathers the batch shard's rows, gathers the router's logits (its expert
+columns are split) and routes, plans and drops exactly as one device
+would; it then runs only its ``E / model`` experts' slots of the
+buffer (or, where the expert count does not divide, every expert's
+slice of the hidden width), and the ranks' partial combines are summed
+into each rank's own rows.  With neither split the FFN runs whole on
+every rank and each keeps its rows.  The aux losses are taken over each
+rank's own rows (``Routing.rows``) and summed over ``model``.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -85,6 +95,8 @@ class Routing(NamedTuple):
     probs: torch.Tensor        # (T, E) float32
     gate: torch.Tensor         # (T, k) float32, renormalized
     expert_ids: torch.Tensor   # (T, k) int64, ties to the lower id
+    # (T,) bool under sequence parallelism: this rank's own rows
+    rows: Optional[torch.Tensor] = None
 
 
 class Plan(NamedTuple):
@@ -96,8 +108,12 @@ class Plan(NamedTuple):
 
 def route(router: torch.Tensor, mcfg: MoEConfig,
           xf: torch.Tensor) -> Routing:
-    """Top-k routing of the tokens ``xf`` (T, d), in float32."""
+    """Top-k routing of the tokens ``xf`` (T, d), in float32.  A router
+    that holds some of the experts' columns (a model shard) has its
+    logits gathered over ``model`` first."""
     logits = xf.float() @ router.float()
+    if router.shape[1] != mcfg.num_experts:
+        logits = sharding.gather_model(logits, -1)
     probs = torch.softmax(logits, dim=-1)
     # a stable descending sort puts equal probabilities in id order, as
     # jax.lax.top_k does
@@ -150,7 +166,12 @@ def aux_losses(r: Routing, mcfg: MoEConfig) -> dict:
                == torch.arange(e, device=r.probs.device)).float()
     frac_tokens = sharding.batch_sum(one_hot.sum((0, 1))) / (t * n * k)
     z = torch.logsumexp(r.logits, -1) ** 2
-    if n == 1:
+    if r.rows is not None:      # every model rank routed all t rows
+        w = r.rows.float()
+        frac_probs = sharding.reduce_model(
+            (r.probs * w[:, None]).sum(0)) / (t * n)
+        z = sharding.reduce_model((z * w).sum()) / (t * n)
+    elif n == 1:
         frac_probs, z = r.probs.mean(0), torch.mean(z)
     else:
         frac_probs, z = r.probs.sum(0) / (t * n), z.sum() / (t * n)
@@ -166,36 +187,59 @@ def moe_ffn(p: dict, mcfg: MoEConfig, x: torch.Tensor, act: str = "silu"):
     taken over each of ``shards(B*S)`` groups of rows; ``aux_losses(
     routing, mcfg)`` gives the reference's auxiliary losses, and
     ``plan.keep`` the (token, choice) pairs that capacity kept."""
+    ep = p["experts"]
+    e, k = mcfg.num_experts, mcfg.top_k
+    el = ep["w_gate"].shape[0]            # the experts this rank runs
+    # a model shard of the experts, or of every expert's hidden width:
+    # this rank's output is a partial sum over model
+    partial = el != e or ep["w_gate"].shape[-1] != mcfg.d_expert
+    x_own = x
+    if sharding.tensor_parallel():
+        x = sharding.model_rows(x)
     b, s, d = x.shape
     t = b * s
-    e, k = mcfg.num_experts, mcfg.top_k
     n_sh = shards(t)
     tl = t // n_sh                        # tokens per data shard
     cap = _capacity(tl, mcfg)
     xf = x.reshape(t, d)
     xf = sharding.constrain(xf, ("batch", None))
     r = route(p["router"], mcfg, xf)
+    r = r._replace(rows=sharding.own_rows_mask(b, s, x.device))
     # group g's experts are experts g*E .. g*E + E-1 of one dispatch
     group = torch.arange(t, device=x.device)[:, None] // tl
     pl = plan(r.expert_ids + group * e, n_sh * e, cap)
-    buf = (xf[pl.slot_tok] * pl.slot_valid[:, None].to(x.dtype)).reshape(
-        n_sh, e, cap, d).transpose(0, 1).reshape(e, n_sh * cap, d)
+    slot_tok, slot_valid, flat_slot, keep = (pl.slot_tok, pl.slot_valid,
+                                             pl.flat_slot, pl.keep)
+    if el != e:                           # this rank's experts' slots
+        lo = sharding.tp_rank() * el
+        slot_tok, slot_valid = (
+            a.reshape(n_sh, e, cap)[:, lo:lo + el].reshape(-1)
+            for a in (slot_tok, slot_valid))
+        g, ex, c = flat_slot // (e * cap), flat_slot // cap % e, \
+            flat_slot % cap
+        keep = keep & (ex >= lo) & (ex < lo + el)
+        flat_slot = ((g * el + (ex - lo).clamp(0, el - 1)) * cap + c)
+    buf = (xf[slot_tok] * slot_valid[:, None].to(x.dtype)).reshape(
+        n_sh, el, cap, d).transpose(0, 1).reshape(el, n_sh * cap, d)
     buf = sharding.constrain(buf, ("expert", "batch", None))
-    ep = p["experts"]
     h = (layers.activation(act, torch.bmm(buf, ep["w_gate"]))
          * torch.bmm(buf, ep["w_in"]))
     out_buf = torch.bmm(h, ep["w_out"])
     out_buf = sharding.constrain(out_buf, ("expert", "batch", None))
-    out_buf = out_buf.reshape(e, n_sh, cap, d).transpose(0, 1).reshape(
-        n_sh * e * cap, d)
+    out_buf = out_buf.reshape(el, n_sh, cap, d).transpose(0, 1).reshape(
+        n_sh * el * cap, d)
 
     # combine: gather each (token, choice)'s slot, weight, sum over k
-    vals = out_buf[pl.flat_slot].masked_fill(~pl.keep[:, None], 0.0)
+    vals = out_buf[flat_slot].masked_fill(~keep[:, None], 0.0)
     vals = sharding.constrain(vals, ("batch", None))
     combined = (vals.reshape(t, k, d)
                 * r.gate.to(x.dtype)[..., None]).sum(1)
     combined = sharding.constrain(combined, ("batch", None))
     out = combined.reshape(b, s, d)
+    if sharding.tensor_parallel():
+        out = (sharding.sum_model_rows(out) if partial
+               else sharding.own_rows(out))
     if mcfg.num_shared_experts:
-        out = out + layers.mlp(p["shared"], x, act)
+        out = out + layers.mlp(p["shared"], x_own, act,
+                               mcfg.d_shared_expert * mcfg.num_shared_experts)
     return out, r, pl

@@ -21,13 +21,42 @@ The active context is a context variable, as in the reference:
 ``constrain`` redistributes a DTensor activation to its placements and
 leaves a plain tensor (and everything without a context) as it is.
 
-The sharded train step (``training.train_loop.make_sharded_train_step``)
-runs the model on each rank's shard of the batch: its context is the
-mesh context's ``local`` view, in which ``gather_params`` all-gathers a
-layer's DTensor weights (their gradients come back summed over the
-batch shards and re-sharded, FSDP-style), ``batch_sum`` all-reduces the
-few statistics a loss needs over the batch, and ``data_shards`` counts
-the MoE dispatch groups on one shard.
+The sharded train step (``training.train_loop.make_train_step(...,
+ctx=)``) runs the model on each rank's shard of the batch: its context
+is the mesh context's ``local`` view.  Over the batch dims the weights
+are gathered as a layer runs (FSDP or ZeRO-1, by the weights'
+placements) and their gradients come back summed over the batch shards;
+``batch_sum`` all-reduces the few statistics a loss needs over the
+batch, and ``data_shards`` counts the MoE dispatch groups on one shard.
+
+Over ``model`` the step is tensor-, sequence- and expert-parallel, as
+the reference's rules place it (Megatron's pairs of collectives):
+
+  * the rows of a batch shard stay split over ``model`` between layers
+    wherever the sequence divides (``batch_shard`` keeps that split);
+    norms and token-wise work run on a rank's own rows;
+  * ``local_params`` hands a layer each weight's ``model`` shard (its
+    heads, MLP columns, vocab slice or experts), gathered over the
+    other mesh dims only; a weight replicated over ``model`` comes
+    whole, and its gradient is a partial sum over ``model`` too, since
+    each rank works on its own rows, heads or experts;
+  * ``model_rows`` gathers the rows before a column-parallel product
+    (its backward reduce-scatters) and ``sum_model_rows`` sums the
+    ranks' partial outputs of a row-parallel one into each rank's own
+    rows (a reduce-scatter; its backward all-gathers).  In a decode
+    step, whose one row cannot split, they are the identity and an
+    all-reduce (Megatron's copy and reduce);
+  * ``reduce_model`` sums a statistic over ``model`` whose every rank
+    then holds the same value (forward all-reduce, identity backward):
+    the vocab-parallel cross-entropy's sums and the MoE aux losses.
+
+The collectives go through ``torch.distributed._functional_collectives``
+inside ``torch.autograd.Function``s, so ``comm_analysis`` sees them
+forward and backward, and a fake process group runs them under a
+``FakeTensorMode``.  ``tensor_parallel()`` says whether they are
+active: only inside a step's ``local`` view over a ``model`` axis of
+more than one rank, and in a training step only where the sequence
+splits over it (else the step gathers every weight as before).
 """
 from __future__ import annotations
 
@@ -37,6 +66,8 @@ import math
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed._functional_collectives as funcol
+from torch.utils.checkpoint import checkpoint as torch_checkpoint
 from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                       distribute_tensor)
 
@@ -75,16 +106,26 @@ class ShardingCtx:
     """Rules over a ``DeviceMesh`` (only its dim names and sizes are read
     by ``spec_for``).  ``batch_dims`` is empty for a mesh context; the
     ``local`` view of a sharded step names the mesh dims its batch is
-    split over."""
+    split over, ``tp`` the ranks it runs tensor-parallel over (1: none)
+    and ``sp`` whether its rows are split over them."""
 
     def __init__(self, mesh, rules=DEFAULT_RULES, fsdp: bool = True,
-                 batch_dims: Tuple[int, ...] = ()):
+                 batch_dims: Tuple[int, ...] = (), tp: int = 1,
+                 sp: bool = False):
         self.mesh = mesh
         self.rules = dict(rules)
         self.fsdp = fsdp
         self.batch_dims = tuple(batch_dims)
+        self.tp = tp
+        self.sp = sp
         self.shape: Dict[str, int] = dict(zip(mesh.mesh_dim_names,
                                               mesh.shape))
+
+    @property
+    def model_dim(self) -> Optional[int]:
+        """The mesh dim named "model", None without one."""
+        names = list(self.shape)
+        return names.index("model") if "model" in names else None
 
     @property
     def batch_shards(self) -> int:
@@ -147,20 +188,35 @@ class ShardingCtx:
                 out[names.index(n)] = Shard(dim)
         return tuple(out)
 
-    def local(self, batch_placements: Sequence) -> "ShardingCtx":
+    def local(self, batch_placements: Sequence,
+              decode: bool = False) -> "ShardingCtx":
         """The view a sharded step runs its batch shard under: the mesh
-        dims on which ``batch_placements`` (the batch's) shard dim 0."""
+        dims on which ``batch_placements`` (the batch's) shard dim 0;
+        tensor-parallel over ``model`` where the batch's rows (dim 1)
+        split over it, or for a ``decode`` step (one row, no
+        gradient)."""
         dims = tuple(i for i, p in enumerate(batch_placements)
                      if isinstance(p, Shard) and p.dim == 0)
+        m = self.model_dim
+        sp = m is not None and batch_placements[m] == Shard(1)
+        tp = self.mesh.shape[m] if m is not None and (sp or decode) else 1
         return ShardingCtx(self.mesh, tuple(self.rules.items()), self.fsdp,
-                           dims)
+                           dims, tp, sp and tp > 1)
+
+    def without_tp(self) -> "ShardingCtx":
+        """This view with the model axis idle: a layer that gathers its
+        weights runs whole on every rank."""
+        return ShardingCtx(self.mesh, tuple(self.rules.items()), self.fsdp,
+                           self.batch_dims)
 
     @property
     def grad_placements(self) -> tuple:
         """How a gathered weight's gradient lies on the mesh inside a
-        step: a partial sum over the batch shards, the same on the other
-        dims (their ranks compute the same thing)."""
-        return tuple(Partial() if i in self.batch_dims else Replicate()
+        step: a partial sum over the batch shards, and over ``model``
+        where its ranks work on their own rows (``sp``); the same on the
+        other dims (their ranks compute the same thing)."""
+        return tuple(Partial() if i in self.batch_dims
+                     or (self.sp and i == self.model_dim) else Replicate()
                      for i in range(self.mesh.ndim))
 
 
@@ -181,6 +237,19 @@ def current() -> Optional[ShardingCtx]:
     return _CTX.get()
 
 
+def checkpoint(fn, *args):
+    """``torch.utils.checkpoint`` (non-reentrant) of ``fn`` under the
+    context active now.  The backward recomputes ``fn`` where autograd
+    runs it: on a CUDA device that is the engine's own thread, where
+    this module's context variable is unset."""
+    ctx = _CTX.get()
+
+    def run(*a):
+        with use_sharding(ctx):
+            return fn(*a)
+    return torch_checkpoint(run, *args, use_reentrant=False)
+
+
 def constrain(x: torch.Tensor, axes: Sequence[Optional[str]]
               ) -> torch.Tensor:
     """Activation sharding constraint: a DTensor is redistributed to
@@ -195,8 +264,9 @@ def constrain(x: torch.Tensor, axes: Sequence[Optional[str]]
 # ------------------------------------------------------ inside a step
 def gather_params(tree):
     """Every DTensor leaf all-gathered to a plain tensor (differentiable:
-    the gradient is summed over the batch shards and re-sharded to the
-    leaf's placements); plain leaves as they are."""
+    the gradient is summed over the batch shards, and over ``model``
+    under sequence parallelism, and re-sharded to the leaf's
+    placements); plain leaves as they are."""
     ctx = _CTX.get()
     if ctx is None:
         return tree
@@ -207,29 +277,68 @@ def gather_params(tree):
     return tree
 
 
+def local_params(tree):
+    """Every DTensor leaf as this rank's ``model`` shard, a plain tensor:
+    gathered over every other mesh dim, split as ``placements_for``
+    splits it over ``model`` (whole where it is replicated there).  The
+    gradient comes back summed over the batch shards, as this rank's
+    shard on ``model`` (a partial sum there for a replicated leaf, as
+    ``grad_placements`` says), and re-sharded to the leaf's
+    placements."""
+    ctx = _CTX.get()
+    if ctx is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: local_params(v) for k, v in tree.items()}
+    if not isinstance(tree, DTensor):
+        return tree
+    m = ctx.model_dim
+    keep = tuple(p if i == m and isinstance(p, Shard) else Replicate()
+                 for i, p in enumerate(tree.placements))
+    grads = tuple(keep[i] if isinstance(keep[i], Shard) else g
+                  for i, g in enumerate(ctx.grad_placements))
+    return tree.redistribute(ctx.mesh, keep).to_local(grad_placements=grads)
+
+
 def batch_shard(x: DTensor) -> torch.Tensor:
-    """A rank's rows of a batch DTensor: the shard of its dim-0 split,
-    every other split (the sequence's over model) gathered."""
-    keep = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
-                 for p in x.placements)
+    """A rank's rows of a batch DTensor: the shard of its dim-0 split and
+    of its sequence's (dim 1) split over ``model``, every other split
+    gathered."""
+    names = list(x.device_mesh.mesh_dim_names or ())
+    m = names.index("model") if "model" in names else None
+    keep = tuple(p if isinstance(p, Shard) and (
+        p.dim == 0 or (p.dim == 1 and i == m)) else Replicate()
+        for i, p in enumerate(x.placements))
     return x.redistribute(x.device_mesh, keep).to_local()
 
 
-def gather_cache(tree: Optional[dict]) -> Optional[dict]:
+def _kept(ctx: "ShardingCtx", i: int, p, heads_dim: Optional[int]) -> bool:
+    """Whether ``gather_cache`` keeps mesh dim i's placement p: the
+    batch's split, and the model split of the heads a tensor-parallel
+    layer reads locally."""
+    return i in ctx.batch_dims or (
+        heads_dim is not None and i == ctx.model_dim and p == Shard(
+            heads_dim))
+
+
+def gather_cache(tree: Optional[dict], heads_dim: Optional[int] = None
+                 ) -> Optional[dict]:
     """A layer's cache dict with its DTensor fields gathered over every
-    mesh dim but the batch's: the batch shard's whole cache, as plain
+    mesh dim but the batch's (and, given ``heads_dim``, the model split
+    of that dim): the batch shard's cache (its local heads), as plain
     tensors.  The dict itself where nothing is a DTensor."""
     ctx = _CTX.get()
     if ctx is None or tree is None or not any(
             isinstance(v, DTensor) for v in tree.values()):
         return tree
     return {k: v.redistribute(ctx.mesh, tuple(
-        p if i in ctx.batch_dims else Replicate()
+        p if _kept(ctx, i, p, heads_dim) else Replicate()
         for i, p in enumerate(v.placements))).to_local()
         if isinstance(v, DTensor) else v for k, v in tree.items()}
 
 
-def scatter_cache(tree: dict, gathered: dict) -> None:
+def scatter_cache(tree: dict, gathered: dict,
+                  heads_dim: Optional[int] = None) -> None:
     """Write this rank's shard of each ``gather_cache`` field (updated in
     place by the layer) back into the DTensor field it came from."""
     ctx = _CTX.get()
@@ -239,7 +348,7 @@ def scatter_cache(tree: dict, gathered: dict) -> None:
             continue
         loc = gathered[k]
         for i, p in enumerate(v.placements):
-            if i not in ctx.batch_dims and isinstance(p, Shard):
+            if not _kept(ctx, i, p, heads_dim) and isinstance(p, Shard):
                 loc = loc.chunk(ctx.mesh.shape[i], p.dim)[coord[i]]
         v.to_local().copy_(loc)
 
@@ -250,13 +359,188 @@ def batch_sum(x: torch.Tensor) -> torch.Tensor:
     ctx = _CTX.get()
     if ctx is None or not ctx.batch_dims:
         return x
-    return DTensor.from_local(
-        x, ctx.mesh, ctx.grad_placements, run_check=False).full_tensor()
+    return DTensor.from_local(x, ctx.mesh, tuple(
+        Partial() if i in ctx.batch_dims else Replicate()
+        for i in range(ctx.mesh.ndim)), run_check=False).full_tensor()
 
 
 def batch_shards() -> int:
     ctx = _CTX.get()
     return ctx.batch_shards if ctx is not None else 1
+
+
+# ------------------------------------------------- over the model axis
+def tensor_parallel() -> bool:
+    """Whether the active step runs tensor-parallel over ``model``."""
+    ctx = _CTX.get()
+    return ctx is not None and ctx.tp > 1
+
+
+def seq_parallel() -> bool:
+    """Whether the active step's rows are split over ``model``."""
+    ctx = _CTX.get()
+    return ctx is not None and ctx.sp
+
+
+def tp_size() -> int:
+    ctx = _CTX.get()
+    return ctx.tp if ctx is not None else 1
+
+
+def tp_rank() -> int:
+    ctx = _CTX.get()
+    return ctx.mesh.get_local_rank("model") if tensor_parallel() else 0
+
+
+def _group():
+    ctx = _CTX.get()
+    return (ctx.mesh, ctx.model_dim)
+
+
+def _wait(t: torch.Tensor) -> torch.Tensor:
+    return t.wait() if isinstance(t, funcol.AsyncCollectiveTensor) else t
+
+
+def _all_reduce(x, group, op: str = "sum"):
+    return _wait(funcol.all_reduce(x.contiguous(), op, group))
+
+
+# the *_single names replace the *_tensor ones in newer torch
+_gather = getattr(funcol, "all_gather_single", funcol.all_gather_tensor)
+_scatter = getattr(funcol, "reduce_scatter_single",
+                   funcol.reduce_scatter_tensor)
+
+
+def _all_gather(x, group, dim: int):
+    return _wait(_gather(x.contiguous(), dim, group))
+
+
+def _reduce_scatter(x, group, dim: int):
+    return _wait(_scatter(x.contiguous(), "sum", dim, group))
+
+
+# Megatron's pairs over the model axis; each keeps the group it ran on
+# for its backward
+class _Copy(torch.autograd.Function):
+    """Identity forward, all-reduce backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _Reduce(torch.autograd.Function):
+    """All-reduce forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherSeq(torch.autograd.Function):
+    """All-gather along ``dim`` forward, reduce-scatter backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.group, ctx.dim), None, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    """Reduce-scatter along ``dim`` forward, all-gather backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _reduce_scatter(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.group, ctx.dim), None, None
+
+
+def reduce_model(x: torch.Tensor) -> torch.Tensor:
+    """x summed over ``model`` (every rank's result the same; each rank's
+    gradient flows to its own part)."""
+    return _Reduce.apply(x, _group()) if tensor_parallel() else x
+
+
+def gather_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The ranks' slices of x concatenated along ``dim`` (backward: each
+    rank's slice of the summed gradient)."""
+    return _GatherSeq.apply(x, _group(), dim) if tensor_parallel() else x
+
+
+def model_rows(x: torch.Tensor) -> torch.Tensor:
+    """The batch shard's rows (dim 1) of x on every model rank before a
+    column-parallel product: gathered under sequence parallelism, else
+    x (its gradient all-reduced)."""
+    if not tensor_parallel():
+        return x
+    if seq_parallel():
+        return _GatherSeq.apply(x, _group(), 1)
+    return _Copy.apply(x, _group())
+
+
+def sum_model_rows(x: torch.Tensor) -> torch.Tensor:
+    """The model ranks' partial sums x of a row-parallel product, summed
+    into this rank's own rows (a reduce-scatter under sequence
+    parallelism, else an all-reduce)."""
+    if not tensor_parallel():
+        return x
+    if seq_parallel():
+        return _ScatterSeq.apply(x, _group(), 1)
+    return _Reduce.apply(x, _group())
+
+
+def own_rows(x: torch.Tensor) -> torch.Tensor:
+    """This rank's rows (dim 1) of a tensor every model rank holds whole
+    (no communication); x itself without sequence parallelism."""
+    if not seq_parallel():
+        return x
+    n = x.shape[1] // tp_size()
+    return x[:, tp_rank() * n:(tp_rank() + 1) * n]
+
+
+def gather_model_values(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """An all-gather over ``model`` of values that take no gradient
+    (token ids, label weights)."""
+    return _all_gather(x, _group(), dim) if tensor_parallel() else x
+
+
+def max_model(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise max over ``model`` (no gradient)."""
+    x = x.detach()
+    return _all_reduce(x, _group(), "max") if tensor_parallel() else x
+
+
+def own_rows_mask(b: int, s: int, device) -> Optional[torch.Tensor]:
+    """(b*s,) bool: which of a batch shard's flattened (b, s) rows are
+    this rank's under sequence parallelism; None without it."""
+    if not seq_parallel():
+        return None
+    n = s // tp_size()
+    pos = torch.arange(s, device=device) // n == tp_rank()
+    return pos.expand(b, s).reshape(-1)
+
+
+def model_offset(full: int, local: int) -> int:
+    """Where this rank's slice of a dim of ``full`` entries, ``local`` a
+    rank, starts (0 where the dim is not split)."""
+    return 0 if local == full else tp_rank() * local
 
 
 # -------------------------------------------------------------- trees

@@ -97,8 +97,14 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
             grads = tree_map(lambda g: g / grad_accum, grads)
             loss = loss / grad_accum
             metrics = {"nll": loss}
-        new_params, new_opt, opt_metrics = adamw_update(
-            opt_cfg, grads, state.opt, state.params)
+        if ctx is None:
+            new_params, new_opt, opt_metrics = adamw_update(
+                opt_cfg, grads, state.opt, state.params)
+        else:
+            # plain 0-d tensors (the step count, lr) act as replicated
+            with implicit_replication():
+                new_params, new_opt, opt_metrics = adamw_update(
+                    opt_cfg, grads, state.opt, state.params)
         metrics = {"loss": loss, **metrics, **opt_metrics}
         return TrainState(new_params, new_opt), metrics
 
@@ -108,9 +114,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     def sharded_step(state: TrainState, batch: Dict[str, DTensor]):
         local = {k: sharding.batch_shard(v) for k, v in batch.items()}
         with sharding.use_sharding(ctx.local(batch["tokens"].placements)):
-            # plain 0-d tensors (the step count, lr) act as replicated
-            with implicit_replication():
-                new_state, metrics = step(state, local)
+            new_state, metrics = step(state, local)
             shares = {k: sharding.batch_sum(v) for k, v in metrics.items()
                       if k not in ("grad_norm", "lr")}
         gnorm = metrics["grad_norm"]

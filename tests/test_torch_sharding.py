@@ -266,6 +266,30 @@ def test_collective_report_counts_by_hand():
     assert hist["_c10d_functional.all_reduce"] == 1
 
 
+def test_collective_report_counts_only_collectives():
+    """On a 4-rank mesh of the fake group and real CPU tensors, a
+    differentiable ``full_tensor`` and its backward: the op that wraps
+    the differentiable gather's result runs but moves nothing, so the
+    report has only the five kinds, and ``total`` is their sum (the
+    gather forward, its reduce-scatter backward)."""
+    mesh = _mesh({"data": 2, "model": 2})
+    x = DTensor.from_local(torch.ones(4, 3, requires_grad=True), mesh,
+                           (Shard(0), Replicate()), run_check=False)
+
+    def fn():
+        y = x.full_tensor(grad_placements=(Partial(), Replicate()))
+        assert y.shape == (8, 3)
+        y.sum().backward()
+    with comm_analysis.StepRecorder() as rec:
+        fn()
+    rep = rec.collective_report()
+    assert set(rep) == set(comm_analysis.COLLECTIVES) | {"total"}
+    assert rep["total"] == sum(rep[k] for k in comm_analysis.COLLECTIVES)
+    assert rep["all-gather"] == 8 * 3 * 4
+    assert rep["reduce-scatter"] == 4 * 3 * 4
+    assert rec.ops["_c10d_functional._wrap_tensor_autograd"] >= 1
+
+
 def test_step_recorder_peak_counts_live_storages():
     with FakeTensorMode():
         with comm_analysis.StepRecorder() as rec:
