@@ -225,8 +225,27 @@ Opt-in, not among the default phases (it needs four cards):
             on a fake 4-rank group under ``FakeTensorMode`` through the
             dry-run's ``input_specs`` and ``step_fn``: its bytes must
             equal the real run's, and its arguments plus temporaries are
-            printed beside rank 0's peak memory.  Fewer than 4 cards
-            fail the phase.
+            printed beside rank 0's peak memory.  MLA, Hymba and xLSTM
+            layers on their model shards at (1, 4): full-width
+            hymba-1.5b float32 train steps of 4 x 512 tokens (cut: the
+            scans are plain torch), loss and grad norm of 3 steps within
+            ``TRAIN_ACCUM_RTOL`` of one card's; xlstm-1.3b's the same
+            of 3 batches from the same weights, no update (its 48
+            layers amplify rounding: its trajectories part after an
+            AdamW step on one card too, however the sums are ordered);
+            deepseek-v2 cut to 3 layers (MLA_DENSE + 2 MLA_MOE: 32
+            heads and 40 experts a card) in bf16, the first batch's loss
+            and grad norm within 1e-2 of one card's ``value_and_grad``;
+            tokens/s and the largest peak a card of each.  Decode over a
+            sequence-split cache: the dry-run's prefill of 8 x 1024
+            tokens and 8 ``decode_step``s against 4096-token caches of
+            full-width hymba-1.5b (5 KV heads: every attention cache
+            splits its sequence over ``model``) and the 3-layer
+            deepseek-v2 (its latents likewise) in float32: every step's
+            logits within 1e-5 of one card's, the largest peak a card,
+            the real collective bytes by kind, and no all-gather of a
+            decode step as large as one layer's smallest cache field.
+            Fewer than 4 cards fail the phase.
 
 Then the line ``{"kernels": [...]}``, the nvidia-smi line, and as the
 last line ``{"ok": true, "device": {...}}``.  ``--only kernels,timing``
@@ -239,8 +258,10 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import functools
 import gc
 import json
+import math
 import os
 import pathlib
 import subprocess
@@ -415,7 +436,20 @@ SHARD_DRYRUN_TIMEOUT = 200
 TP4_MESHES = ((4, 1), (1, 4), (2, 2))
 TP4_GRANITE_MESH, TP4_DRYRUN_MESH = (1, 4), (2, 2)
 TP4_BF16_RTOL = 1e-2
-TP4_TIMEOUT = 600
+TP4_TIMEOUT = 1200
+# MLA, Hymba and xLSTM layers at (1, 4): full-width hymba-1.5b train
+# steps and xlstm-1.3b's loss and gradient of 3 batches in float32 at
+# 4 x 512 tokens (the scans are plain torch and slow, so batch and
+# sequence are cut), deepseek-v2 cut
+# to 3 layers in bf16 (its first batch's loss and grad norm against one
+# card's value_and_grad); the split-cache decode: the dry-run's prefill
+# of 8 x 1024 tokens and 8 decode steps against 4096-token caches of
+# full-width hymba-1.5b and the 3-layer deepseek-v2 in float32, each
+# rank's logits made whole within TP4_SERVE_TOL of one card's
+TP4_LAYER_MESH = (1, 4)
+TP4_LAYER_BATCH, TP4_LAYER_SEQ = 4, 512
+TP4_SERVE = dict(batch=8, prompt=1024, cache_len=4096, steps=8)
+TP4_SERVE_TOL = 1e-5
 # full-width f32 step: kernel logits vs plain logits, relative to the
 # logits' scale.  The two differ only in the order of the attention's
 # float32 sums (~1e-6 relative per call); 28 layers of residual updates
@@ -2618,7 +2652,6 @@ def train_full_width(torch, cfg, dtype):
     ``grad_accum=1`` step's.  Step walls, tokens/s, 6*N*tokens/s over
     the card's peak for the dtype, peak memory, and where a step's time
     goes (``device_profile``)."""
-    import math
     from repro_torch.data import synthetic_lm_batches
     from repro_torch.models import model as M
     from repro_torch.training import optimizer as O
@@ -3052,7 +3085,6 @@ def tp4_phase(torch):
     """The tp4 phase (see the module's docstring): the fake-group child
     and the 4 NCCL ranks run at once; rank 0 writes the ranks' results,
     which are checked and printed here."""
-    import math
     import multiprocessing
     import socket
     n = torch.cuda.device_count()
@@ -3107,9 +3139,7 @@ def tp4_phase(torch):
     ok = True
     for run in res["runs"]:
         base = res["one_card"][f"{run['model']}/{run['dtype']}"]
-        errs = [max(rel_err(s[k], u[k]) for k in ("loss", "grad_norm"))
-                if run["dtype"] == "float32" else rel_err(s["loss"],
-                                                          u["loss"])
+        errs = [max(rel_err(s[k], u[k]) for k in run["keys"])
                 for s, u in zip(run["steps"], base["steps"])]
         tol = (TRAIN_ACCUM_RTOL if run["dtype"] == "float32"
                else TP4_BF16_RTOL)
@@ -3132,10 +3162,18 @@ def tp4_phase(torch):
          real_rank0_peak_bytes=real["rank0_peak_bytes"],
          fake_over_real=fake_bytes / real["rank0_peak_bytes"],
          card=card, ok=same)
+    for run in res["serves"]:
+        base = res["one_card"][f"{run['model']}/serve"]
+        run_ok = (run["max_rel_err"] <= TP4_SERVE_TOL
+                  and run["max_all_gather_bytes"]
+                  < run["smallest_layer_cache_bytes"])
+        ok &= run_ok
+        emit("tp4_serve", **run, tol=TP4_SERVE_TOL, one_card=base,
+             card=card, ok=run_ok)
     emit("tp4_done", seconds=time.perf_counter() - t0, ok=ok)
     if not ok:
-        raise AssertionError("the tp4 phase failed (see tp4_train and "
-                             "tp4_dryrun)")
+        raise AssertionError("the tp4 phase failed (see tp4_train, "
+                             "tp4_serve and tp4_dryrun)")
 
 
 def tp4_rank(rank, port, out_dir):
@@ -3150,7 +3188,7 @@ def tp4_rank(rank, port, out_dir):
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=4)
     try:
-        res = tp4_runs(torch, dist, rank)
+        res = tp4_runs(torch, dist, rank, pathlib.Path(out_dir))
         if rank == 0:
             with open(pathlib.Path(out_dir) / "rank0.json", "w") as f:
                 json.dump(res, f)
@@ -3158,9 +3196,18 @@ def tp4_rank(rank, port, out_dir):
         dist.destroy_process_group()
 
 
-def tp4_runs(torch, dist, rank):
-    """Every rank: the one-card steps (one model and dtype a rank, at
-    once), then each sharded run, then the dry-run's step at (2, 2)."""
+def deepseek_cut3(cfg):
+    """deepseek-v2 at its published widths, the depth cut to 3 layers:
+    (MLA_DENSE, MLA_MOE, MLA_MOE), ~9.3 B parameters."""
+    from repro_torch.models.config import MLA_DENSE, MLA_MOE
+    return cfg.replace(name=cfg.name + "-depth3", n_layers=3,
+                       layer_pattern=(MLA_DENSE, MLA_MOE, MLA_MOE))
+
+
+def tp4_runs(torch, dist, rank, out_dir):
+    """Every rank: the one-card runs (one model and dtype a rank at a
+    time, the ranks at once), then each sharded run, the dry-run's step
+    at (2, 2) and the split-cache decodes."""
     from repro_torch.configs import get_config
     from repro_torch.data import synthetic_lm_batches
     from repro_torch.launch.mesh import make_debug_mesh
@@ -3170,43 +3217,71 @@ def tp4_runs(torch, dist, rank):
     from repro_torch.training import train_loop as T
     qwen, granite = get_config("qwen3-0.6b"), get_config(
         "granite-moe-3b-a800m")
+    hymba, xlstm = get_config("hymba-1.5b"), get_config("xlstm-1.3b")
+    deepseek = deepseek_cut3(get_config("deepseek-v2-236b"))
     f32, bf16 = torch.float32, torch.bfloat16
-    batches = {cfg.name: [next(it) for _ in range(TRAIN_STEPS)] for cfg, it
-               in ((c, synthetic_lm_batches(c.vocab_size, TRAIN_BATCH,
-                                            TRAIN_SEQ, device="cuda"))
-                   for c in (qwen, granite))}
-    from repro_torch.tree import tree_map
-    held = {}
+    shapes = {c.name: (TRAIN_BATCH, TRAIN_SEQ) for c in (qwen, granite)}
+    shapes.update({c.name: (TP4_LAYER_BATCH, TP4_LAYER_SEQ)
+                   for c in (hymba, xlstm, deepseek)})
+    batches = {n: [next(it) for _ in range(TRAIN_STEPS)] for n, it in (
+        (c.name, synthetic_lm_batches(c.vocab_size, *shapes[c.name],
+                                      device="cuda"))
+        for c in (qwen, granite, hymba, xlstm, deepseek))}
 
     def weights(cfg, dtype):
-        """The drawn weights on the card; one draw held on the host, so
-        no run's peak memory counts a whole copy it does not use."""
-        key = (cfg.name, dtype)
-        if key not in held:
-            held.clear()
-            held[key] = tree_map(lambda t: t.cpu(),
-                                 M.init(cfg, 0, dtype, "cuda"))
-        return tree_map(lambda t: t.to("cuda"), held[key])
+        """The drawn weights on the card, drawn afresh for each run."""
+        return M.init(cfg, 0, dtype, "cuda")
 
-    def grads(cfg, dtype):
-        """One card's loss and gradient norm of the first batch, no
-        update (granite's whole bf16 step does not fit one card: its
-        float32 moments, old and new, and the update's float32
-        temporaries pass 80 GB)."""
-        params = weights(cfg, dtype)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        loss, _m, g = T.value_and_grad(params, cfg, batches[cfg.name][0])
-        gnorm = O.global_norm(g)
-        torch.cuda.synchronize()
-        row = dict(loss=float(loss), grad_norm=float(gnorm),
-                   wall_s=time.perf_counter() - t0)
-        peak = torch.cuda.max_memory_allocated()
-        del params, g
+    def settle():
         gc.collect()
         torch.cuda.empty_cache()
-        return [row], peak
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    def grads(cfg, dtype, mesh=None, n=1):
+        """The loss and gradient norm of each of the first ``n`` batches
+        from the drawn weights, no update, on one card or sharded on
+        ``mesh``.  Granite's and deepseek's whole bf16 steps do not fit
+        one card (their float32 moments, old and new, and the update's
+        float32 temporaries pass 80 GB); xlstm-1.3b's 48 layers amplify
+        rounding, so its trajectories part after an AdamW update however
+        the sums are ordered: its batches are compared from the same
+        weights."""
+        from torch.distributed.tensor import DTensor
+        from torch.distributed.tensor.experimental import (
+            implicit_replication)
+        params = weights(cfg, dtype)
+        ctx = None
+        if mesh is not None:
+            ctx = sharding.ShardingCtx(make_debug_mesh(*mesh))
+            params = sharding.distribute(ctx, params, M.param_axes(cfg))
+        settle()
+        rows = []
+        for b in batches[cfg.name][:n]:
+            t0 = time.perf_counter()
+            if ctx is None:
+                loss, _m, g = T.value_and_grad(params, cfg, b)
+                gnorm = O.global_norm(g)
+            else:
+                b = sharding.distribute(ctx, b, {k: ("batch", "seq")
+                                                 for k in b})
+                with sharding.use_sharding(ctx.local(
+                        b["tokens"].placements)):
+                    loss, _m, g = T.value_and_grad(params, cfg, {
+                        k: sharding.batch_shard(v) for k, v in b.items()})
+                    loss = sharding.batch_sum(loss)
+                with implicit_replication():
+                    gnorm = O.global_norm(g)
+                if isinstance(gnorm, DTensor):
+                    gnorm = gnorm.full_tensor()
+            torch.cuda.synchronize()
+            rows.append(dict(loss=float(loss), grad_norm=float(gnorm),
+                             wall_s=time.perf_counter() - t0))
+            del g
+        peak = torch.cuda.max_memory_allocated()
+        del params
+        settle()
+        return rows, peak
 
     def run(cfg, dtype, mesh=None):
         params = weights(cfg, dtype)
@@ -3217,10 +3292,7 @@ def tp4_runs(torch, dist, rank):
         state = T.TrainState(params, O.adamw_init(params))
         step = T.make_train_step(cfg, O.AdamWConfig(**TRAIN_OPT), ctx=ctx)
         del params
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        settle()
         rows = []
         for b in batches[cfg.name]:
             if ctx is not None:
@@ -3231,50 +3303,174 @@ def tp4_runs(torch, dist, rank):
                              wall_s=wall))
         peak = torch.cuda.max_memory_allocated()
         del state, step
-        gc.collect()
-        torch.cuda.empty_cache()
+        settle()
         return rows, peak
 
-    jobs = [(run, qwen, f32), (run, qwen, bf16), (grads, granite, bf16)]
+    g = torch.Generator().manual_seed(7)
+    sv = TP4_SERVE
+    serve_tokens = {c.name: (
+        torch.randint(0, c.vocab_size, (sv["batch"], sv["prompt"]),
+                      generator=g, dtype=torch.int32),
+        torch.randint(0, c.vocab_size, (sv["steps"], sv["batch"]),
+                      generator=g, dtype=torch.int32))
+        for c in (hymba, deepseek)}
+
+    def positions(t):
+        return torch.full((sv["batch"],), sv["prompt"] + t,
+                          dtype=torch.int32, device="cuda")
+
+    def serve_one(cfg, dtype):
+        """One card's prefill and decode logits (float32), saved for the
+        sharded run to read."""
+        params = weights(cfg, dtype)
+        caches = M.init_cache(cfg, sv["batch"], sv["cache_len"], dtype,
+                              "cuda")
+        tok, nxt = (t.to("cuda") for t in serve_tokens[cfg.name])
+        settle()
+        t0 = time.perf_counter()
+        out = [M.prefill(params, cfg, tok.long(), caches, impl="train")[0]]
+        for t in range(sv["steps"]):
+            out.append(M.decode_step(params, cfg, caches, nxt[t].long(),
+                                     positions(t).long())[0])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        torch.save([o.cpu() for o in out], out_dir / f"{cfg.name}.pt")
+        peak = torch.cuda.max_memory_allocated()
+        del params, caches, out
+        settle()
+        return [dict(wall_s=wall)], peak
+
+    def serve_sharded(cfg, dtype, mesh):
+        """The dry-run's prefill and decode steps on the mesh, under
+        ``StepRecorder``: each rank's logits made whole against one
+        card's, the collective bytes by kind (rank 0's, prefill and the
+        decode steps), the largest all-gather of a decode step beside
+        the smallest cache field of one layer."""
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        from repro_torch.configs import InputShape
+        from repro_torch.launch import dryrun
+        from repro_torch.launch.comm_analysis import StepRecorder
+        from repro_torch.models import blocks
+        b, n = sv["batch"], sv["cache_len"]
+        ctx = sharding.ShardingCtx(make_debug_mesh(*mesh))
+        params = sharding.distribute(ctx, weights(cfg, dtype),
+                                     M.param_axes(cfg))
+        caches = sharding.distribute(ctx, M.init_cache(
+            cfg, b, n, dtype, "cuda"), M.cache_axes(cfg, b, n))
+        tok, nxt = (t.to("cuda") for t in serve_tokens[cfg.name])
+        tokens = sharding.distribute(ctx, tok, ("batch", "seq"))
+        prefill = dryrun.step_fn(cfg, InputShape(
+            "p", sv["prompt"], b, "prefill"), ctx)
+        decode = dryrun.step_fn(cfg, InputShape("d", n, b, "decode"), ctx)
+        steps = [sharding.distribute(ctx, t, ("batch",)) for t in nxt]
+        pos = [sharding.distribute(ctx, positions(t), ("batch",))
+               for t in range(sv["steps"])]
+        settle()
+        t0 = time.perf_counter()
+        rec_p, rec_d = StepRecorder(), StepRecorder()
+        rec_p.own((params, caches, tokens))
+        with rec_p:
+            got = [prefill(params, caches, tokens)[0]]
+        rec_d.own((params, caches, steps, pos))
+        with rec_d:
+            for t in range(sv["steps"]):
+                got.append(decode(params, caches, steps[t], pos[t])[0])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        rows = ctx.placements_for((b,), ("batch",))
+        errs = []
+        for gl, w in zip(got, torch.load(out_dir / f"{cfg.name}.pt")):
+            pl = [Shard(0) if isinstance(p, Shard) else Replicate()
+                  for p in rows]
+            if gl.shape[-1] != cfg.vocab_size:
+                pl[ctx.model_dim] = Shard(gl.dim() - 1)
+            whole = DTensor.from_local(gl, ctx.mesh, pl,
+                                       run_check=False).full_tensor()
+            errs.append(float((whole.cpu() - w).abs().max()
+                              / w.abs().max()))
+        size = torch.tensor([], dtype=dtype).element_size()
+        smallest = min(math.prod(shape[1:]) * size for run in
+                       M.cache_struct(cfg, b, n)
+                       for name, (shape, _a) in run.items()
+                       if name in blocks.SEQ_FIELDS)
+        gathers = [math.prod(s) * size for s in rec_d.shapes["all-gather"]]
+        del params, caches, got
+        settle()
+        return dict(
+            model=cfg.name, dtype=str(dtype).split(".")[-1],
+            mesh=list(mesh), batch=b, prompt=sv["prompt"], cache_len=n,
+            decode_steps=sv["steps"], rel_errs=errs, max_rel_err=max(errs),
+            wall_s=wall, prefill_collectives=rec_p.collective_report(),
+            decode_collectives=rec_d.collective_report(),
+            max_all_gather_bytes=max(gathers, default=0),
+            smallest_layer_cache_bytes=smallest), peak
+
+    xlstm_grads = functools.partial(grads, n=TRAIN_STEPS)
+    jobs = [(run, qwen, f32), (run, qwen, bf16), (grads, granite, bf16),
+            (run, hymba, f32), (xlstm_grads, xlstm, f32),
+            (grads, deepseek, bf16), (serve_one, hymba, f32),
+            (serve_one, deepseek, f32)]
     mine = {}
-    if rank < len(jobs):
-        fn, cfg, dtype = jobs[rank]
+    for fn, cfg, dtype in jobs[rank::4]:
         rows, peak = fn(cfg, dtype)
+        if fn is serve_one:
+            mine[f"{cfg.name}/serve"] = dict(rows[0],
+                                             peak_memory_gb=peak / 1e9)
+            continue
         best = min(r["wall_s"] for r in rows)
-        mine = {f"{cfg.name}/{str(dtype).split('.')[-1]}": dict(
-            steps=rows, tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / best,
-            peak_memory_gb=peak / 1e9,
-            update=fn is run)}
+        mine[f"{cfg.name}/{str(dtype).split('.')[-1]}"] = dict(
+            steps=rows, tokens_per_s=math.prod(shapes[cfg.name]) / best,
+            peak_memory_gb=peak / 1e9, update=fn is run)
     gathered = [None] * 4
     dist.all_gather_object(gathered, mine)
     one_card = {k: v for g in gathered for k, v in g.items()}
 
-    runs, dry = [], None
-    plan = [(qwen, dt, mesh) for dt in (f32, bf16) for mesh in TP4_MESHES]
-    plan.append((granite, bf16, TP4_GRANITE_MESH))
+    runs, serves, dry = [], [], None
+    plan = [(run, qwen, dt, mesh) for dt in (f32, bf16)
+            for mesh in TP4_MESHES]
+    plan += [(run, granite, bf16, TP4_GRANITE_MESH),
+             (run, hymba, f32, TP4_LAYER_MESH),
+             (xlstm_grads, xlstm, f32, TP4_LAYER_MESH),
+             (run, deepseek, bf16, TP4_LAYER_MESH)]
     t0 = time.perf_counter()
-    for cfg, dtype, mesh in plan:
-        if cfg is granite and dry is None:   # while qwen's bf16 is held
+
+    def worst_peak(peak):
+        peaks = [None] * 4
+        dist.all_gather_object(peaks, peak)
+        return peaks
+
+    for fn, cfg, dtype, mesh in plan:
+        if cfg is granite and dry is None:
             dry = tp4_dryrun_step(torch, qwen, weights(qwen, bf16),
                                   batches[qwen.name][0])
-        rows, peak = run(cfg, dtype, mesh)
+        rows, peak = fn(cfg, dtype, mesh)
         if rank == 0:
             emit("tp4_progress", model=cfg.name, mesh=list(mesh),
                  dtype=str(dtype), seconds=time.perf_counter() - t0)
         walls = torch.tensor([r["wall_s"] for r in rows], device="cuda")
         dist.all_reduce(walls, op=dist.ReduceOp.MAX)
-        peaks = [None] * 4
-        dist.all_gather_object(peaks, peak)
+        peaks = worst_peak(peak)
         for r, w in zip(rows, walls.tolist()):
             r["wall_s"] = w                 # the slowest rank's
         best = min(r["wall_s"] for r in rows)
+        keys = (("loss", "grad_norm") if dtype == f32 or cfg is deepseek
+                else ("loss",))
         runs.append(dict(model=cfg.name, dtype=str(dtype).split(".")[-1],
-                         mesh=list(mesh), batch=[TRAIN_BATCH, TRAIN_SEQ],
-                         steps=rows,
-                         tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / best,
+                         mesh=list(mesh), batch=list(shapes[cfg.name]),
+                         steps=rows, keys=keys,
+                         tokens_per_s=math.prod(shapes[cfg.name]) / best,
                          peak_memory_gb_by_rank=[p / 1e9 for p in peaks],
                          max_peak_memory_gb=max(peaks) / 1e9))
-    return dict(one_card=one_card, runs=runs, dryrun=dry)
+    for cfg in (hymba, deepseek):
+        row, peak = serve_sharded(cfg, f32, TP4_LAYER_MESH)
+        if rank == 0:
+            emit("tp4_progress", model=cfg.name, mesh=list(TP4_LAYER_MESH),
+                 dtype="serve", seconds=time.perf_counter() - t0)
+        peaks = worst_peak(peak)
+        serves.append(dict(row, peak_memory_gb_by_rank=[
+            p / 1e9 for p in peaks], max_peak_memory_gb=max(peaks) / 1e9))
+    return dict(one_card=one_card, runs=runs, serves=serves, dryrun=dry)
 
 
 def tp4_dryrun_step(torch, cfg, full, batch):
@@ -3333,7 +3529,6 @@ def sim_fit(torch, cfg, pa, pp):
     the steps; the paged kernels must launch once a layer for each step
     that needs them.  Returns the fitted ``DeviceSpec`` and the
     launches."""
-    import math
     import statistics
 
     import numpy as np
@@ -4054,7 +4249,6 @@ def memo_init():
     float32 draw takes its cast (as ``init_params`` casts its float32
     draw) and is held instead.  Nothing here writes to a weight.
     ``M.init.__wrapped__`` draws afresh (the shard phase times it)."""
-    import functools
     from repro_torch.models import model as M
     from repro_torch.tree import tree_map
     draw = M.init

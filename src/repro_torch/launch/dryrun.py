@@ -27,8 +27,8 @@ the reference's ``input_specs``, its ZeRO-1 / FSDP regime by size and
 its micro-batching; the step is the port's (``training.train_loop``:
 each rank runs its batch shard, tensor-, sequence- and expert-parallel
 over ``model`` as ``models.sharding`` describes, its weights gathered
-over the batch dims as it runs; MLA, Hymba and xLSTM layers gather
-theirs over ``model`` too), so these bytes are the port's, not the
+over the batch dims as it runs, its cache read as its shards, a
+sequence split included), so these bytes are the port's, not the
 reference's.
 
 Run it in a process of its own: it makes the fake process group, which
@@ -130,8 +130,9 @@ def step_fn(cfg: ModelConfig, shape: InputShape,
         return make_train_step(cfg, AdamWConfig(), remat=True,
                                grad_accum=accum, ctx=ctx)
 
-    def local(tokens: DTensor, decode: bool = False):
-        return sharding.use_sharding(ctx.local(tokens.placements, decode))
+    def local(tokens: DTensor):
+        return sharding.use_sharding(ctx.local(tokens.placements,
+                                               serve=True))
 
     if shape.kind == "prefill":
         def prefill_step(params, caches, tokens):
@@ -141,7 +142,7 @@ def step_fn(cfg: ModelConfig, shape: InputShape,
         return prefill_step
 
     def serve_step(params, caches, tokens, positions):
-        with local(tokens, decode=True):
+        with local(tokens):
             return M.decode_step(params, cfg, caches,
                                  sharding.batch_shard(tokens),
                                  sharding.batch_shard(positions))

@@ -36,12 +36,17 @@ from repro_torch.tree import tree_leaves
 
 # ---------------------------------------------------------------- norms
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
-             eps: float = 1e-6) -> torch.Tensor:
+             eps: float = 1e-6, width: Optional[int] = None) -> torch.Tensor:
     """RMS norm computed in float32; weights are zero-initialized and
-    scale by ``1 + scale``."""
+    scale by ``1 + scale``.  Where x holds this rank's channels of a
+    ``width``-channel vector (``scale`` its entries of the norm's), the
+    sum of squares is all-reduced over ``model``."""
     dtype = x.dtype
     x = x.float()
-    var = x.square().mean(dim=-1, keepdim=True)
+    if width is not None and width != x.shape[-1]:
+        var = sharding.sum_model(x.square().sum(-1, keepdim=True)) / width
+    else:
+        var = x.square().mean(dim=-1, keepdim=True)
     out = x * torch.rsqrt(var + eps)
     return (out * (1.0 + scale.float())).to(dtype)
 
@@ -91,24 +96,60 @@ def causal_mask(sq: int, sk: int, q_offset: int = 0, window: int = 0,
 
 
 def decode_mask(positions: torch.Tensor, sk: int,
-                window: int = 0) -> torch.Tensor:
-    """(B, 1, sk) mask for decoding one token at ``positions`` (B,)."""
-    kpos = torch.arange(sk, device=positions.device)
+                window: int = 0, offset: int = 0) -> torch.Tensor:
+    """(B, 1, sk) mask for decoding one token at ``positions`` (B,)
+    against keys at positions ``offset`` .. ``offset + sk - 1``."""
+    kpos = torch.arange(offset, offset + sk, device=positions.device)
     m = kpos[None, :] <= positions[:, None]
     if window:
         m &= kpos[None, :] > (positions[:, None] - window)
     return m[:, None, :]
 
 
+# ---------------------------------------------------------------- cache writes
+def put_token(dst: torch.Tensor, bidx: torch.Tensor, at: torch.Tensor,
+              val: torch.Tensor,
+              split: Optional[sharding.SeqSplit] = None) -> None:
+    """``dst[b, at[b]] = val[b]`` in place, cast to dst's dtype.  Under a
+    ``split`` of dim 1, dst is this rank's chunk and ``at`` a global
+    index: only the rank whose chunk holds it writes (the others write
+    back what they read, so nothing waits on the host)."""
+    val = val.to(dst.dtype)
+    if split is None:
+        dst[bidx, at] = val
+        return
+    n = dst.shape[1]
+    local = at - split.bounds(n)[0]
+    own = ((local >= 0) & (local < n)).reshape((-1,) + (1,) * (val.dim() - 1))
+    idx = local.clamp(0, n - 1)
+    dst[bidx, idx] = torch.where(own, val, dst[bidx, idx])
+
+
+def write_rows(dst: torch.Tensor, src: torch.Tensor,
+               split: Optional[sharding.SeqSplit] = None) -> None:
+    """``dst[:, :S] = src`` (a prompt into a linear cache), in place;
+    under a ``split`` of dim 1 only the rows of this rank's chunk."""
+    if split is None:
+        dst[:, :src.shape[1]] = src
+        return
+    lo, hi = split.bounds(dst.shape[1])
+    hi = min(hi, src.shape[1])
+    if lo < hi:
+        dst[:, :hi - lo] = src[:, lo:hi]
+
+
 # ---------------------------------------------------------------- attention
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               mask: torch.Tensor, *, softcap: float = 0.0,
-              scale: Optional[float] = None) -> torch.Tensor:
+              scale: Optional[float] = None,
+              split: Optional[sharding.SeqSplit] = None) -> torch.Tensor:
     """Grouped-query attention core, softmax in float32.
 
     q: (B, Sq, H, D); k, v: (B, Sk, Hkv, D); mask (Sq, Sk) or
     (B, Sq, Sk).  Returns (B, Sq, H, D).  A fully masked row averages V
-    uniformly, as in the JAX package.
+    uniformly, as in the JAX package.  With ``split`` k and v are this
+    rank's chunk of a sequence split over mesh dims, and the softmax is
+    taken over every rank's keys (``softmax_split``).
     """
     b, sq, h, d = q.shape
     hkv, dv = k.shape[2], v.shape[-1]
@@ -122,9 +163,29 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask_b = (mask[:, None, None] if mask.dim() == 3
               else mask[None, None, None])
     logits = logits.masked_fill(~mask_b, NEG_INF)
+    if split is not None:
+        probs, den = softmax_split(logits, split)
+        out = sharding.reduce_over(torch.einsum(
+            "bhgqk,bkhd->bhgqd", probs, v.float()), split, "sum") / den
+        return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dv).to(q.dtype)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
     return out.reshape(b, sq, h, dv).to(q.dtype)
+
+
+def softmax_split(logits: torch.Tensor, split: sharding.SeqSplit):
+    """The softmax of rows whose keys (the last dim) are split over the
+    mesh dims of ``split``: (exp(logits - M), the sum of every rank's
+    terms), M the max over every rank's keys (all-reduces of a few
+    values a row).  The weighted values summed over the ranks and
+    divided by the sum are the softmax's.  A row no rank sees a key of
+    keeps the reference's finite fill: M is ``NEG_INF`` and every term
+    1, so V is averaged uniformly over all ranks' keys; a rank that sees
+    none of a row's visible keys adds 0."""
+    m = sharding.reduce_over(logits.amax(-1, keepdim=True), split, "max")
+    probs = torch.exp(logits - m)
+    return probs, sharding.reduce_over(probs.sum(-1, keepdim=True), split,
+                                       "sum")
 
 
 def attn_causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -25,10 +25,11 @@ slice and the cross-entropy is vocab-parallel (the max, the sum of
 exponentials and the target logit reduced over ``model``; the whole
 vocab's logits are never built).  Where the vocab does not divide the
 model axis, the embedding comes whole and each rank takes the loss of
-its own rows.  DENSE, SWA and MOE layers run on model shards; the other
-layer types (MLA, Hymba, xLSTM) take every weight whole in one branch,
-``_gathered_layer``.  ``prefill`` and ``decode_step`` then return this
-rank's vocab slice of the logits.
+its own rows.  Every layer type runs on its rank's model shards
+(``blocks``), and a cache is read and written as this rank's shards
+(a sequence split over the mesh included: the decode's softmax is then
+reduced over the ranks, ``layers.softmax_split``).  ``prefill`` and
+``decode_step`` then return this rank's vocab slice of the logits.
 """
 from __future__ import annotations
 
@@ -208,34 +209,11 @@ def _gathered(params):
 def _layer(p_l, cfg: C.ModelConfig, ltype: str, x: torch.Tensor, **kw):
     """One layer, its DTensor weights fetched first: inside the remat
     region, so the backward fetches them again (FSDP's reshard after
-    forward).  A tensor-parallel step runs DENSE, SWA and MOE layers on
-    their model shards."""
-    if not sharding.tensor_parallel():
-        return blocks.apply_layer(sharding.gather_params(p_l), cfg, ltype,
-                                  x, **kw)
-    if ltype in blocks.TP_LAYER_TYPES:
-        return blocks.apply_layer(sharding.local_params(p_l), cfg, ltype,
-                                  x, **kw)
-    return _gathered_layer(p_l, cfg, ltype, x, **kw)
-
-
-def _gathered_layer(p_l, cfg: C.ModelConfig, ltype: str, x: torch.Tensor,
-                    **kw):
-    """A layer whose type has no tensor-parallel form yet (MLA, Hymba,
-    xLSTM: ROADMAP S3b) inside a tensor-parallel step: every weight
-    gathered whole, the layer run whole over the batch shard's rows on
-    every model rank, each rank keeping its own rows (its gradients
-    then partial sums over ``model``) and its MoE aux losses over
-    them."""
-    p = sharding.gather_params(p_l)
-    ctx = sharding.current()
-    xg = sharding.gather_model(x, 1) if ctx.sp else x
-    with sharding.use_sharding(ctx.without_tp()):
-        y, cache, r = blocks.apply_layer(p, cfg, ltype, xg, **kw)
-    if r is not None:
-        r = r._replace(rows=sharding.own_rows_mask(*xg.shape[:2],
-                                                   xg.device))
-    return sharding.own_rows(y), cache, r
+    forward).  A tensor-parallel step runs every layer type on its
+    rank's model shards."""
+    fetch = (sharding.local_params if sharding.tensor_parallel()
+             else sharding.gather_params)
+    return blocks.apply_layer(fetch(p_l), cfg, ltype, x, **kw)
 
 
 def _trunk(params, cfg: C.ModelConfig, tokens: torch.Tensor,
@@ -245,9 +223,9 @@ def _trunk(params, cfg: C.ModelConfig, tokens: torch.Tensor,
     the MoE layers' routings).  ``remat`` runs each layer under
     ``torch.utils.checkpoint`` (recomputed in the backward), as the
     reference wraps its scan body in ``jax.checkpoint``.  Inside a
-    sharded step each layer's DTensor weights are gathered as it runs,
-    and a DTensor cache is gathered to the batch shard's whole cache
-    for the layer and its shard written back after it."""
+    sharded step each layer's DTensor weights are fetched as it runs,
+    and a DTensor cache is read and written as this rank's shards of it
+    (``sharding.local_cache``): nothing of a cache moves."""
     params = _gathered(params)
     if mode == "full":
         b, s = tokens.shape[:2]
@@ -263,20 +241,17 @@ def _trunk(params, cfg: C.ModelConfig, tokens: torch.Tensor,
     routings = []
     for i, (ltype, n) in enumerate(cfg.layer_runs):
         run_p = params[f"run_{i}"]
-        run_c = caches[i] if caches is not None else None
-        # a tensor-parallel layer reads its KV heads' split of the cache
-        heads_dim = (2 if sharding.tensor_parallel()
-                     and ltype in blocks.TP_LAYER_TYPES else None)
+        # stacked fields: (layers, batch, sequence, ...)
+        run_c, split = sharding.local_cache(
+            caches[i] if caches is not None else None, blocks.SEQ_FIELDS, 2)
         for j in range(n):
             c_l = layer_view(run_c, j) if run_c is not None else None
-            c_use = sharding.gather_cache(c_l, heads_dim)
             layer = functools.partial(
                 _layer, layer_view(run_p, j), cfg, ltype,
-                positions=positions, cache=c_use, mode=mode, impl=impl)
+                positions=positions, cache=c_l, mode=mode, impl=impl,
+                split=split)
             x, _, r = (sharding.checkpoint(layer, x) if remat
                        else layer(x))
-            if c_use is not c_l:
-                sharding.scatter_cache(c_l, c_use, heads_dim)
             if r is not None:
                 routings.append(r)
         if mode == "full":

@@ -29,41 +29,64 @@ placements) and their gradients come back summed over the batch shards;
 ``batch_sum`` all-reduces the few statistics a loss needs over the
 batch, and ``data_shards`` counts the MoE dispatch groups on one shard.
 
-Over ``model`` the step is tensor-, sequence- and expert-parallel, as
-the reference's rules place it (Megatron's pairs of collectives):
+Over ``model`` every layer type is tensor-, sequence- and
+expert-parallel, as the reference's rules place it (Megatron's pairs of
+collectives); no weight the rules split over ``model`` is gathered
+whole over it:
 
   * the rows of a batch shard stay split over ``model`` between layers
     wherever the sequence divides (``batch_shard`` keeps that split);
     norms and token-wise work run on a rank's own rows;
   * ``local_params`` hands a layer each weight's ``model`` shard (its
-    heads, MLP columns, vocab slice or experts), gathered over the
-    other mesh dims only; a weight replicated over ``model`` comes
+    heads, MLP or SSM channels, vocab slice or experts), gathered over
+    the other mesh dims only; a weight replicated over ``model`` comes
     whole, and its gradient is a partial sum over ``model`` too, since
     each rank works on its own rows, heads or experts;
   * ``model_rows`` gathers the rows before a column-parallel product
     (its backward reduce-scatters) and ``sum_model_rows`` sums the
     ranks' partial outputs of a row-parallel one into each rank's own
-    rows (a reduce-scatter; its backward all-gathers).  In a decode
-    step, whose one row cannot split, they are the identity and an
-    all-reduce (Megatron's copy and reduce);
+    rows (a reduce-scatter; its backward all-gathers).  In a serving
+    step whose rows are whole on every model rank (a decode's one row)
+    they are the identity and an all-reduce (Megatron's copy and
+    reduce);
   * ``reduce_model`` sums a statistic over ``model`` whose every rank
     then holds the same value (forward all-reduce, identity backward):
-    the vocab-parallel cross-entropy's sums and the MoE aux losses.
+    the vocab-parallel cross-entropy's sums and the MoE aux losses;
+    ``sum_model`` sums partial products each rank then uses for its own
+    channels (all-reduce forward and backward: Mamba's ``x_proj``,
+    mLSTM's gates, a norm's sum of squares over split channels);
+  * activations are gathered over ``model`` only where a split does not
+    line up with the computation: the queries of a decode whose cache
+    splits its sequence over ``model`` (every head then attends to this
+    rank's keys); mLSTM's inputs and outputs where its heads stay whole
+    (``ssm``); ``split_halves`` moves the column blocks of a fused
+    ``[x_in | z]`` product to their channels' ranks (an all-to-all) and
+    ``channels_to_rows`` sLSTM's head outputs to their rows' ranks;
+    the small recurrent states a cache holds whole are gathered when
+    stored (``blocks._store``).
+
+A cache is read and written as each rank's shards (``local_cache``):
+where its sequence splits over mesh dims (``SeqSplit``) the owner of a
+new token's slot writes it and the decode's softmax reduces its max and
+sums over those dims (``reduce_over``, ``layers.softmax_split``); no
+cache is gathered.
 
 The collectives go through ``torch.distributed._functional_collectives``
 inside ``torch.autograd.Function``s, so ``comm_analysis`` sees them
 forward and backward, and a fake process group runs them under a
-``FakeTensorMode``.  ``tensor_parallel()`` says whether they are
-active: only inside a step's ``local`` view over a ``model`` axis of
-more than one rank, and in a training step only where the sequence
-splits over it (else the step gathers every weight as before).
+``FakeTensorMode`` (the serving steps' reductions over a cache's split
+take no gradient and call them directly).  ``tensor_parallel()`` says
+whether they are active: only inside a step's ``local`` view over a
+``model`` axis of more than one rank, in a training step only where the
+sequence splits over it (else the step gathers every weight), in a
+serving step (``local(..., serve=True)``) always.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed._functional_collectives as funcol
@@ -189,25 +212,19 @@ class ShardingCtx:
         return tuple(out)
 
     def local(self, batch_placements: Sequence,
-              decode: bool = False) -> "ShardingCtx":
+              serve: bool = False) -> "ShardingCtx":
         """The view a sharded step runs its batch shard under: the mesh
         dims on which ``batch_placements`` (the batch's) shard dim 0;
         tensor-parallel over ``model`` where the batch's rows (dim 1)
-        split over it, or for a ``decode`` step (one row, no
-        gradient)."""
+        split over it, or for a ``serve`` step (prefill or decode: no
+        gradient), whose rows may stay whole on every model rank."""
         dims = tuple(i for i, p in enumerate(batch_placements)
                      if isinstance(p, Shard) and p.dim == 0)
         m = self.model_dim
         sp = m is not None and batch_placements[m] == Shard(1)
-        tp = self.mesh.shape[m] if m is not None and (sp or decode) else 1
+        tp = self.mesh.shape[m] if m is not None and (sp or serve) else 1
         return ShardingCtx(self.mesh, tuple(self.rules.items()), self.fsdp,
                            dims, tp, sp and tp > 1)
-
-    def without_tp(self) -> "ShardingCtx":
-        """This view with the model axis idle: a layer that gathers its
-        weights runs whole on every rank."""
-        return ShardingCtx(self.mesh, tuple(self.rules.items()), self.fsdp,
-                           self.batch_dims)
 
     @property
     def grad_placements(self) -> tuple:
@@ -312,45 +329,55 @@ def batch_shard(x: DTensor) -> torch.Tensor:
     return x.redistribute(x.device_mesh, keep).to_local()
 
 
-def _kept(ctx: "ShardingCtx", i: int, p, heads_dim: Optional[int]) -> bool:
-    """Whether ``gather_cache`` keeps mesh dim i's placement p: the
-    batch's split, and the model split of the heads a tensor-parallel
-    layer reads locally."""
-    return i in ctx.batch_dims or (
-        heads_dim is not None and i == ctx.model_dim and p == Shard(
-            heads_dim))
+class SeqSplit(NamedTuple):
+    """How a cache's sequence dim is split: over mesh ``dims`` (in mesh
+    order, so pod-major) into equal chunks, of which this rank holds
+    chunk ``index``."""
+    dims: Tuple[int, ...]
+    index: int
+    model: bool             # whether ``model`` is among the dims
+
+    def bounds(self, length: int) -> Tuple[int, int]:
+        """[lo, hi) of this rank's chunk, ``length`` entries long, of the
+        whole dim."""
+        return self.index * length, (self.index + 1) * length
 
 
-def gather_cache(tree: Optional[dict], heads_dim: Optional[int] = None
-                 ) -> Optional[dict]:
-    """A layer's cache dict with its DTensor fields gathered over every
-    mesh dim but the batch's (and, given ``heads_dim``, the model split
-    of that dim): the batch shard's cache (its local heads), as plain
-    tensors.  The dict itself where nothing is a DTensor."""
+def local_cache(tree: Optional[dict], seq_fields: Sequence[str],
+                dim: int) -> Tuple[Optional[dict], Optional[SeqSplit]]:
+    """A run's cache as this rank's shards, plain tensors that share the
+    DTensors' storage (written in place, nothing moves), and the split
+    of dim ``dim`` of its ``seq_fields`` (None where it is whole).  Every
+    split the rules give a cache is one the layers compute on: the
+    batch's, the KV heads', mLSTM's heads or value dim over ``model``,
+    and the sequence's, which the attention reduces over."""
     ctx = _CTX.get()
-    if ctx is None or tree is None or not any(
-            isinstance(v, DTensor) for v in tree.values()):
-        return tree
-    return {k: v.redistribute(ctx.mesh, tuple(
-        p if _kept(ctx, i, p, heads_dim) else Replicate()
-        for i, p in enumerate(v.placements))).to_local()
-        if isinstance(v, DTensor) else v for k, v in tree.items()}
+    if ctx is None or tree is None:
+        return tree, None
+    split = None
+    for name in seq_fields:
+        t = tree.get(name)
+        if isinstance(t, DTensor):
+            dims = tuple(i for i, p in enumerate(t.placements)
+                         if p == Shard(dim))
+            if dims:
+                coord = ctx.mesh.get_coordinate()
+                index = 0
+                for i in dims:
+                    index = index * ctx.mesh.shape[i] + coord[i]
+                split = SeqSplit(dims, index, ctx.model_dim in dims)
+            break
+    return {k: v.to_local() if isinstance(v, DTensor) else v
+            for k, v in tree.items()}, split
 
 
-def scatter_cache(tree: dict, gathered: dict,
-                  heads_dim: Optional[int] = None) -> None:
-    """Write this rank's shard of each ``gather_cache`` field (updated in
-    place by the layer) back into the DTensor field it came from."""
+def reduce_over(x: torch.Tensor, split: SeqSplit, op: str) -> torch.Tensor:
+    """x reduced (``op`` "max" or "sum") over the mesh dims of a cache's
+    sequence split, one all-reduce a dim (no gradient: serving steps)."""
     ctx = _CTX.get()
-    coord = ctx.mesh.get_coordinate()
-    for k, v in tree.items():
-        if not isinstance(v, DTensor):
-            continue
-        loc = gathered[k]
-        for i, p in enumerate(v.placements):
-            if not _kept(ctx, i, p, heads_dim) and isinstance(p, Shard):
-                loc = loc.chunk(ctx.mesh.shape[i], p.dim)[coord[i]]
-        v.to_local().copy_(loc)
+    for i in split.dims:
+        x = _all_reduce(x, (ctx.mesh, i), op)
+    return x
 
 
 def batch_sum(x: torch.Tensor) -> torch.Tensor:
@@ -412,11 +439,11 @@ _scatter = getattr(funcol, "reduce_scatter_single",
 
 
 def _all_gather(x, group, dim: int):
-    return _wait(_gather(x.contiguous(), dim, group))
+    return _wait(_gather(x.contiguous(), dim % x.dim(), group))
 
 
 def _reduce_scatter(x, group, dim: int):
-    return _wait(_scatter(x.contiguous(), "sum", dim, group))
+    return _wait(_scatter(x.contiguous(), "sum", dim % x.dim(), group))
 
 
 # Megatron's pairs over the model axis; each keeps the group it ran on
@@ -472,6 +499,96 @@ class _ScatterSeq(torch.autograd.Function):
         return _all_gather(g, ctx.group, ctx.dim), None, None
 
 
+class _AllToAll(torch.autograd.Function):
+    """Chunk j of x (along ``split_dim``) to rank j, the chunks received
+    concatenated along ``cat_dim`` in rank order; the backward is the
+    same exchange the other way.  ``sizes`` (None: equal chunks) gives
+    the (sent, received) element counts along those dims per rank."""
+
+    @staticmethod
+    def forward(ctx, x, group, split_dim, cat_dim, sizes):
+        ctx.args = (group, cat_dim, split_dim,
+                    None if sizes is None else sizes[::-1])
+        return _all_to_all(x, group, split_dim, cat_dim, sizes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, *ctx.args), None, None, None, None
+
+
+def _all_to_all(x, group, split_dim, cat_dim, sizes):
+    n = group[0].shape[group[1]]
+    sent, got = sizes if sizes is not None else (
+        [x.shape[split_dim] // n] * n, None)
+    parts = x.split(sent, split_dim)
+    flat = torch.cat([t.movedim(split_dim, 0).reshape(-1) for t in parts])
+    per = [t.numel() for t in parts]
+    rest = list(parts[0].movedim(split_dim, 0).shape[1:])
+    width = math.prod(rest)
+    recv = [per[0]] * n if got is None else [c * width for c in got]
+    out = _wait(funcol.all_to_all_single(flat, recv, per, group))
+    chunks = [c.reshape([-1] + rest).movedim(0, split_dim)
+              for c in out.split(recv)]
+    return torch.cat(chunks, cat_dim)
+
+
+def sum_model(x: torch.Tensor) -> torch.Tensor:
+    """The model ranks' partial sums x added up on every rank, where each
+    rank then uses the sum differently (its own channels or heads): an
+    all-reduce forward and backward."""
+    if not tensor_parallel():
+        return x
+    return _Copy.apply(_Reduce.apply(x, _group()), _group())
+
+
+def model_slice(t: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """This rank's ``n`` entries of dim ``dim`` of a tensor every model
+    rank holds whole (a view, no communication); t where it has n."""
+    if t.shape[dim] == n:
+        return t
+    return t.narrow(dim, tp_rank() * n, n)
+
+
+def channels_to_rows(y: torch.Tensor) -> torch.Tensor:
+    """(B, S, C/model) this rank's channels of every row of the batch
+    shard -> (B, S', C) every channel of this rank's rows: an all-to-all
+    under sequence parallelism, else an all-gather of the channels."""
+    if not tensor_parallel():
+        return y
+    if seq_parallel():
+        return _AllToAll.apply(y, _group(), 1, y.dim() - 1, None)
+    return gather_model(y, y.dim() - 1)
+
+
+def split_halves(y: torch.Tensor, n: int, width: int) -> torch.Tensor:
+    """This rank's column shard ``y`` of a fused product ``[a | b]``
+    (each half ``width`` channels, split over ``model`` as one weight)
+    -> ``[a_c | b_c]`` for this rank's ``n`` channels c.  The stored
+    split is not a channel split: at model 4 ranks 0-1 hold ``a``, ranks
+    2-3 ``b``.  With n = width / model the column blocks move between
+    the ranks (an all-to-all of the activation, the weight stays where
+    it is); with n = width (channels not split) the halves are gathered
+    whole.  y itself where it is whole."""
+    if not tensor_parallel() or y.shape[-1] == 2 * width:
+        return y
+    m, c = tp_size(), y.shape[-1] // 2          # c = width / model
+    if n == width:
+        return gather_model(y, y.dim() - 1)
+    if n != c:
+        raise ValueError(f"{n} channels a rank from a {2 * c}-column shard")
+    # global block j (c columns) goes to rank j % m; rank r holds blocks
+    # 2r and 2r + 1 and receives blocks r and m + r
+    r = tp_rank()
+    sent = [0] * m
+    for j in (2 * r, 2 * r + 1):
+        sent[j % m] += c
+    got = [0] * m
+    for j in (r, m + r):
+        got[j // 2] += c
+    return _AllToAll.apply(y, _group(), y.dim() - 1, y.dim() - 1,
+                           (sent, got))
+
+
 def reduce_model(x: torch.Tensor) -> torch.Tensor:
     """x summed over ``model`` (every rank's result the same; each rank's
     gradient flows to its own part)."""
@@ -525,6 +642,12 @@ def max_model(x: torch.Tensor) -> torch.Tensor:
     """The elementwise max over ``model`` (no gradient)."""
     x = x.detach()
     return _all_reduce(x, _group(), "max") if tensor_parallel() else x
+
+
+def row_offset(n: int) -> int:
+    """The global index of this rank's first row, ``n`` rows a rank under
+    sequence parallelism (0 without it)."""
+    return tp_rank() * n if seq_parallel() else 0
 
 
 def own_rows_mask(b: int, s: int, device) -> Optional[torch.Tensor]:

@@ -25,6 +25,39 @@ the values and save host launches:
 Each 128-step chunk runs under ``torch.utils.checkpoint`` while autograd
 records, the counterpart of ``jax.checkpoint(chunk_body)``: the backward
 keeps only the states between chunks.
+
+Inside a tensor-parallel step (``models.sharding``) x holds this rank's
+rows; each layer gathers the batch shard's rows (a recurrence needs
+them all) and runs on the reference's placements:
+
+* Mamba: ``in_proj`` column-parallel over ``mlp``.  Its stored split is
+  not a channel split (at model 4 ranks 0-1 hold ``x_in``, ranks 2-3
+  ``z``), so ``sharding.split_halves`` moves the product's column
+  blocks to their channels' ranks (an all-to-all of the activation; the
+  weight stays).  The conv, ``dt_w``, ``dt_b``, ``A_log`` and ``D`` are
+  the rank's channels'; ``x_proj`` gives partial sums of (B, S, r + 2N),
+  all-reduced; ``out_proj`` is row-parallel.  The states ``h`` and
+  ``conv`` have the axes ("batch", None, None), so a cache holds them
+  whole on every model rank: each rank scans from its channels' slice
+  and the new state is gathered over ``model`` when stored (B x di x N
+  and B x 3 x di values a layer, against the cache's K/V or the
+  weights), rather than split the state's layout from the reference's.
+* mLSTM: ``up_proj`` the same way, ``down_proj`` row-parallel; where the
+  heads divide the model axis each rank runs its heads (``wq/wk/wv``
+  and the state over "heads"), the dense ``igate_w``/``fgate_w``
+  contraction over the split channels is all-reduced, and ``out_norm``'s
+  sum of squares too.  Where they do not (xlstm-1.3b's 4 heads at 16),
+  the conv's outputs are gathered over ``model`` (activations) and every
+  rank runs every head on its share of the matrix memory's value dim,
+  as the rules split C ("mlp" on its last dim); the normed outputs are
+  gathered back to the rank's channels for ``down_proj``.
+* sLSTM: ``w_gates``, ``r_gates`` and ``b_gates`` over "heads": the
+  recurrence is per head, so the scan needs no collective a step;
+  ``out_norm``'s sum of squares is all-reduced and the heads' outputs
+  go to their rows' ranks (``sharding.channels_to_rows``).
+
+A layer whose weights the rules leave whole runs whole on the gathered
+rows and keeps its own.
 """
 from __future__ import annotations
 
@@ -35,7 +68,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models import layers
+from repro_torch.models import layers, sharding
 from repro_torch.models.config import ModelConfig, SSMConfig, XLSTMConfig
 from repro_torch.models.params import Spec
 
@@ -138,14 +171,19 @@ def _mamba_chunk(h, start, stop, x_c, dt, bmat, cmat, a, d_skip):
     return h, y.to(xt.dtype)
 
 
-def _mamba_core(p, scfg, x_c, x_in, h0, chunk: int = CHUNK):
+def _mamba_core(p, scfg, x_c, x_in, h0, chunk: int = CHUNK,
+                partial: bool = False):
     """Selective-scan recurrence over x_c (B, S, di), chunked for
     sqrt-memory training.  Returns (y (B, S, di) in x_c's dtype, final
-    state (B, di, N) float32)."""
+    state (B, di, N) float32).  ``partial``: x_c holds this rank's
+    channels, so its ``x_proj`` product is a partial sum over ``model``,
+    all-reduced."""
     n = scfg.state_size
     r = p["dt_w"].shape[0]
     s = x_c.shape[1]
     dbc = x_c @ p["x_proj"]
+    if partial:
+        dbc = sharding.sum_model(dbc)
     dt_r, bmat, cmat = dbc.split([r, n, n], dim=-1)
     dt = softplus(dt_r @ p["dt_w"] + p["dt_b"])
     a = -torch.exp(p["A_log"].float())                         # (di, N)
@@ -154,30 +192,57 @@ def _mamba_core(p, scfg, x_c, x_in, h0, chunk: int = CHUNK):
     return ys, h
 
 
+def _mamba_in(p, x, di: int):
+    """x @ in_proj split into (x_in, z), each this rank's channels (the
+    conv's: all of them outside a tensor-parallel step)."""
+    n = p["conv_w"].shape[-1]
+    return sharding.split_halves(x @ p["in_proj"], n, di).chunk(2, dim=-1)
+
+
+def _mamba_out(y, z, p, di: int):
+    """The gated output through ``out_proj``: row-parallel where y holds
+    this rank's channels (summed into its rows), else this rank's
+    rows."""
+    out = (y * F.silu(z)) @ p["out_proj"]
+    if y.shape[-1] != di:
+        return sharding.sum_model_rows(out)
+    return sharding.own_rows(out)
+
+
 def mamba_seq(p, cfg: ModelConfig, x: torch.Tensor, state: dict):
     """x: (B, S, d) -> (out, new_state).  The conv is seeded with the
-    carried buffer (chunked prefill)."""
+    carried buffer (chunked prefill).  Inside a tensor-parallel step x
+    holds this rank's rows and the scan runs over every row, on this
+    rank's channels."""
     scfg = cfg.ssm
-    x_in, z = (x @ p["in_proj"]).chunk(2, dim=-1)
+    di = scfg.expand * cfg.d_model
+    x_in, z = _mamba_in(p, sharding.model_rows(x), di)
+    n = x_in.shape[-1]
     cw = scfg.conv_width
-    padded = torch.cat([state["conv"].to(x_in.dtype), x_in], dim=1)
+    padded = torch.cat([sharding.model_slice(state["conv"], -1, n)
+                        .to(x_in.dtype), x_in], dim=1)
     x_c = F.silu(_causal_conv_seq(padded, p["conv_w"], p["conv_b"])
                  [:, cw - 1:])
-    y, h = _mamba_core(p, scfg, x_c, x_in, state["h"])
-    out = (y * F.silu(z)) @ p["out_proj"]
-    return out, {"conv": padded[:, -(cw - 1):], "h": h}
+    y, h = _mamba_core(p, scfg, x_c, x_in,
+                       sharding.model_slice(state["h"], 1, n),
+                       partial=n != di)
+    return _mamba_out(y, z, p, di), {"conv": padded[:, -(cw - 1):], "h": h}
 
 
 def mamba_step(p, cfg: ModelConfig, x: torch.Tensor, state: dict):
     """x: (B, d) one token -> (out (B, d), new_state)."""
     scfg = cfg.ssm
-    x_in, z = (x @ p["in_proj"]).chunk(2, dim=-1)
-    xc, conv_buf = _causal_conv_step(x_in, state["conv"].to(x_in.dtype),
-                                     p["conv_w"], p["conv_b"])
+    di = scfg.expand * cfg.d_model
+    x_in, z = _mamba_in(p, x, di)
+    n = x_in.shape[-1]
+    xc, conv_buf = _causal_conv_step(
+        x_in, sharding.model_slice(state["conv"], -1, n).to(x_in.dtype),
+        p["conv_w"], p["conv_b"])
     xc = F.silu(xc)
-    y, h = _mamba_core(p, scfg, xc[:, None], x_in[:, None], state["h"])
-    out = (y[:, 0] * F.silu(z)) @ p["out_proj"]
-    return out, {"conv": conv_buf, "h": h}
+    y, h = _mamba_core(p, scfg, xc[:, None], x_in[:, None],
+                       sharding.model_slice(state["h"], 1, n),
+                       partial=n != di)
+    return _mamba_out(y[:, 0], z, p, di), {"conv": conv_buf, "h": h}
 
 
 # ===================================================================== mLSTM
@@ -249,26 +314,49 @@ def mlstm_seq(p, cfg: ModelConfig, x: torch.Tensor, state: dict,
     no per-step (dh x dh) matrix state kept for the backward.  The final
     recurrent state is then built in closed form so that decode can
     continue from a parallel prefill; the parallel form assumes a fresh
-    (zero) initial C, n, m.  A single token takes the recurrent step."""
+    (zero) initial C, n, m.  A single token takes the recurrent step.
+
+    Inside a tensor-parallel step (see the module's docstring) x holds
+    this rank's rows and the layer runs over every row: on this rank's
+    heads where they split, else on every head with this rank's share of
+    the matrix memory's value dim."""
     xc = cfg.xlstm
-    b, s, _ = x.shape
+    b = x.shape[0]
     hn = xc.num_heads
-    if parallel is None:
-        parallel = s > 1
-    x_in, z = (x @ p["up_proj"]).chunk(2, dim=-1)
-    di = x_in.shape[-1]
+    di = int(xc.mlstm_proj_factor * cfg.d_model)
     dh = di // hn
+    if parallel is None:
+        parallel = x.shape[1] > 1
+    xg = sharding.model_rows(x)
+    s = xg.shape[1]
+    n = p["conv_w"].shape[-1]                  # this rank's channels
+    x_in, z = sharding.split_halves(xg @ p["up_proj"], n, di).chunk(2, -1)
     cw = xc.conv_width
-    padded = torch.cat([state["conv"].to(x_in.dtype), x_in], dim=1)
+    padded = torch.cat([sharding.model_slice(state["conv"], -1, n)
+                        .to(x_in.dtype), x_in], dim=1)
     x_c = F.silu(_causal_conv_seq(padded, p["conv_w"], p["conv_b"])
                  [:, cw - 1:])
-    x_ch = x_c.reshape(b, s, hn, dh)
-    x_inh = x_in.reshape(b, s, hn, dh)
+    hl = p["wq"].shape[0]                      # this rank's heads
+    x_inh = x_in
+    if hl == hn and n != di:       # heads whole, channels split: gather
+        x_c = sharding.gather_model(x_c, -1)
+        x_inh = sharding.gather_model(x_in, -1)
+    # the value dim of C this rank keeps: all of it, or (heads whole) its
+    # share where it divides, as the rules split C's "mlp" dim
+    vl, tp = dh, sharding.tp_size()
+    if hl == hn and tp > 1 and dh % tp == 0:
+        vl = dh // tp
+    x_ch = x_c.reshape(b, s, hl, dh)
     q = torch.einsum("bshd,hde->bshe", x_ch, p["wq"])
     k = torch.einsum("bshd,hde->bshe", x_ch, p["wk"]) / math.sqrt(dh)
-    v = torch.einsum("bshd,hde->bshe", x_inh, p["wv"])
-    i_raw = (x_in @ p["igate_w"] + p["igate_b"]).float()
-    f_raw = (x_in @ p["fgate_w"] + p["fgate_b"] + 3.0).float()
+    v = torch.einsum("bshd,hde->bshe", x_inh.reshape(b, s, hl, dh),
+                     sharding.model_slice(p["wv"], 2, vl))
+    i_raw, f_raw = (x_inh @ sharding.model_slice(p[w], 0, x_inh.shape[-1])
+                    for w in ("igate_w", "fgate_w"))
+    if x_inh.shape[-1] != di:      # this rank's channels: partial sums
+        i_raw, f_raw = sharding.sum_model(i_raw), sharding.sum_model(f_raw)
+    i_raw = sharding.model_slice(i_raw + p["igate_b"], -1, hl).float()
+    f_raw = sharding.model_slice(f_raw + p["fgate_b"] + 3.0, -1, hl).float()
     if parallel:
         f_log = log_sigmoid(f_raw)                             # (B,S,H)
         f_cum = torch.cumsum(f_log, dim=1)                     # F_t
@@ -285,11 +373,29 @@ def mlstm_seq(p, cfg: ModelConfig, x: torch.Tensor, state: dict,
         n_vec = torch.einsum("bsh,bshd->bhd", w, k32)
         new_core = {"C": c_mat, "n": n_vec, "m": m_new}
     else:
-        hs, new_core = _mlstm_core(p, hn, q.float(), k.float(), v.float(),
-                                   i_raw, f_raw, state)
-    y = hs.reshape(b, s, di).to(x.dtype)
-    y = layers.rms_norm(y, p["out_norm"], cfg.norm_eps)
+        st = {"C": sharding.model_slice(sharding.model_slice(
+                  state["C"], 1, hl), 3, vl),
+              "n": sharding.model_slice(state["n"], 1, hl),
+              "m": sharding.model_slice(state["m"], 1, hl)}
+        hs, new_core = _mlstm_core(p, hl, q.float(), k.float(), v.float(),
+                                   i_raw, f_raw, st)
+    y = hs.reshape(b, s, hl * vl).to(x.dtype)
+    scale = p["out_norm"]
+    if vl != dh:        # every head's share of the value dim
+        lo = sharding.tp_rank() * vl
+        y = layers.rms_norm(y, scale.reshape(hn, dh)[:, lo:lo + vl]
+                            .reshape(-1), cfg.norm_eps, width=di)
+        y = sharding.gather_model(y.reshape(b, s, hn, vl), -1)
+        y = sharding.model_slice(y.reshape(b, s, di), -1, n)
+    elif hl != hn:      # this rank's heads: its channels
+        y = layers.rms_norm(y, sharding.model_slice(scale, 0, n),
+                            cfg.norm_eps, width=di)
+    else:
+        y = sharding.model_slice(layers.rms_norm(y, scale, cfg.norm_eps),
+                                 -1, n)
     out = (y * F.silu(z)) @ p["down_proj"]
+    out = (sharding.sum_model_rows(out) if n != di
+           else sharding.own_rows(out))
     new_core["conv"] = padded[:, -(cw - 1):]
     return out, new_core
 
@@ -365,13 +471,25 @@ def _slstm_scan(p, cfg, wx, state, chunk: int = CHUNK):
 
 
 def slstm_seq(p, cfg: ModelConfig, x: torch.Tensor, state: dict):
-    """x: (B, S, d) -> (out, new_state)."""
-    b, s, d = x.shape
+    """x: (B, S, d) -> (out, new_state).  Inside a tensor-parallel step x
+    holds this rank's rows and the scan runs over every row, on this
+    rank's heads where they split (their normed channels then sent to
+    the rows' ranks)."""
+    xg = sharding.model_rows(x)
+    b, s, d = xg.shape
     w = p["w_gates"].float()
-    wx = (x.float() @ w.reshape(d, -1)).reshape((b, s) + w.shape[1:])
-    hs, new_state = _slstm_scan(p, cfg, wx, state)
-    y = hs.reshape(b, s, d).to(x.dtype)
-    return layers.rms_norm(y, p["out_norm"], cfg.norm_eps), new_state
+    wx = (xg.float() @ w.reshape(d, -1)).reshape((b, s) + w.shape[1:])
+    hl = w.shape[2]
+    hs, new_state = _slstm_scan(p, cfg, wx, {
+        k: sharding.model_slice(state[k], 1, hl) for k in ("c", "n", "m",
+                                                            "h")})
+    y = hs.reshape(b, s, -1).to(x.dtype)
+    if hl != cfg.xlstm.num_heads:
+        y = layers.rms_norm(y, sharding.model_slice(
+            p["out_norm"], 0, y.shape[-1]), cfg.norm_eps, width=d)
+        return sharding.channels_to_rows(y), new_state
+    return (sharding.own_rows(layers.rms_norm(y, p["out_norm"],
+                                              cfg.norm_eps)), new_state)
 
 
 def slstm_step(p, cfg: ModelConfig, x: torch.Tensor, state: dict):

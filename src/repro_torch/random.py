@@ -20,6 +20,13 @@ rounds them, since that is where the JAX package's draws are made:
 Each of these is a chain of elementwise torch operations, so the CPU
 and a CUDA card give the same bits.  ``engine.sampling`` draws tokens
 with it and ``models.params`` the weights.
+
+Two things keep a large draw cheap without changing a bit: threefry
+runs on int32 bit patterns (wrapping adds, masked right shifts), and a
+float32 draw of at least ``TABLE_MIN`` values reads its result from a
+table of the 2**23 values the top 23 random bits can give (a bfloat16
+draw, 8 bits a value, from one of 256), built once per device and
+bounds by the same elementwise chain.
 """
 from __future__ import annotations
 
@@ -34,24 +41,42 @@ _TINY = 1.1754943508222875e-38      # float32's smallest normal
 
 
 # ------------------------------------------------------------ threefry
-def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
-    return ((x << r) | (x >> (32 - r))) & MASK
+def _i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 tensors of uint32 values -> int32 tensors of the same bits."""
+    return (x - ((x >> 31) & 1) * (1 << 32)).to(torch.int32)
+
+
+def _u32(x: torch.Tensor) -> torch.Tensor:
+    """int32 bit patterns -> int64 tensors of their uint32 values."""
+    return x.long() & MASK
+
+
+def _rotl32(x: torch.Tensor, r: int) -> torch.Tensor:
+    return (x << r) | ((x >> (32 - r)) & ((1 << r) - 1))
+
+
+def _threefry32(k1, k2, x1, x2):
+    """Threefry-2x32 on int32 bit patterns: int32 adds wrap as uint32
+    adds do, and the rotation masks the sign bits an arithmetic right
+    shift brings in."""
+    k3 = k1 ^ k2 ^ 0x1BD11BDA
+    ks = (k1, k2, k3)
+    x = [x1 + k1, x2 + k2]
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x[0] = x[0] + x[1]
+            x[1] = _rotl32(x[1], r) ^ x[0]
+        x[0] = x[0] + ks[(i + 1) % 3]
+        x[1] = x[1] + (ks[(i + 2) % 3] + (i + 1))
+    return x[0], x[1]
 
 
 def threefry2x32(k1, k2, x1, x2):
     """The Threefry-2x32 hash (20 rounds) of counters (x1, x2) under key
     (k1, k2): int64 tensors holding uint32 values, broadcast together.
     Returns the two uint32 output words as int64 tensors."""
-    k3 = k1 ^ k2 ^ 0x1BD11BDA
-    ks = (k1, k2, k3)
-    x = [(x1 + k1) & MASK, (x2 + k2) & MASK]
-    for i in range(5):
-        for r in _ROT[i % 2]:
-            x[0] = (x[0] + x[1]) & MASK
-            x[1] = _rotl(x[1], r) ^ x[0]
-        x[0] = (x[0] + ks[(i + 1) % 3]) & MASK
-        x[1] = (x[1] + ks[(i + 2) % 3] + (i + 1)) & MASK
-    return x[0], x[1]
+    y1, y2 = _threefry32(*(_i32(t) for t in (k1, k2, x1, x2)))
+    return _u32(y1), _u32(y2)
 
 
 def prng_key(seed: int, device=None) -> torch.Tensor:
@@ -87,16 +112,22 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([y1, y2], -1)
 
 
+def _bits32(keys: torch.Tensor, n: int, offset: int = 0) -> torch.Tensor:
+    """``random_bits`` as int32 bit patterns."""
+    j = _i32(_counts(n, keys.device, offset))
+    k = _i32(keys)
+    y1, y2 = _threefry32(k[..., 0, None], k[..., 1, None],
+                         torch.zeros_like(j), j)
+    return y1 ^ y2
+
+
 def random_bits(keys: torch.Tensor, n: int, offset: int = 0
                 ) -> torch.Tensor:
     """32-bit ``random_bits`` for each of keys (..., 2) over a flat shape
     of n -> (..., n) int64 uint32 values: word j is the xor of the hash
     of the counter pair (0, j).  ``offset`` draws words offset..offset+n
     of a larger shape."""
-    j = _counts(n, keys.device, offset)
-    k1, k2 = keys[..., 0, None], keys[..., 1, None]
-    y1, y2 = threefry2x32(k1, k2, torch.zeros_like(j), j)
-    return y1 ^ y2
+    return _u32(_bits32(keys, n, offset))
 
 
 def _ftz(x: torch.Tensor) -> torch.Tensor:
@@ -110,8 +141,14 @@ def uniform(keys: torch.Tensor, n: int, minval: float = 0.0,
     keys (..., 2): the top 23 bits as a mantissa in [1, 2), minus 1,
     scaled (one FMA, as XLA contracts it), and held at or above
     ``minval``.  ``offset`` as in :func:`random_bits`."""
-    bits = (random_bits(keys, n, offset) >> 9) | 0x3F800000
-    floats = bits.to(torch.int32).view(torch.float32) - 1.0
+    return _uniform23((_bits32(keys, n, offset) >> 9) & 0x7FFFFF, minval,
+                      maxval)
+
+
+def _uniform23(mant: torch.Tensor, minval: float,
+               maxval: float) -> torch.Tensor:
+    """``uniform``'s values from the top 23 random bits (int32)."""
+    floats = (mant | 0x3F800000).view(torch.float32) - 1.0
     lo, hi = _r32(minval, maxval)
     span = _r32(hi - lo)            # a float32 subtraction, rounded once
     return torch.clamp_min(_ftz(_fma(floats, span, lo)), lo)
@@ -269,17 +306,48 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.bfloat16().float()
 
 
-def _uniform_bf16(key: torch.Tensor, n: int, lo: float, hi: float,
-                  offset: int) -> torch.Tensor:
-    """bfloat16 ``jax.random.uniform`` (as float32 values): 8 random bits
-    a value (bf16 has 7 mantissa bits, under jax's minimum of 8), the top
-    7 as the mantissa, every step rounded to bfloat16."""
-    bits = random_bits(key, n, offset) & 0xFF
-    floats = _bf16(((bits >> 1) << 16 | 0x3F800000).to(torch.int32)
-                   .view(torch.float32) - 1.0)
+def _uniform_bf16(bits: torch.Tensor, lo: float, hi: float
+                  ) -> torch.Tensor:
+    """bfloat16 ``jax.random.uniform`` (as float32 values) from the low 8
+    random bits (int32) a value (bf16 has 7 mantissa bits, under jax's
+    minimum of 8): the top 7 as the mantissa, every step rounded to
+    bfloat16."""
+    floats = _bf16(((bits >> 1) << 16 | 0x3F800000).view(torch.float32)
+                   - 1.0)
     lo, hi = _bf16(torch.tensor([lo, hi])).tolist()
     span = _bf16(torch.tensor(hi - lo)).item()
     return torch.clamp_min(_bf16(_bf16(floats * span) + lo), lo)
+
+
+# a float32 draw of at least this many values reads a table
+TABLE_MIN = 1 << 20
+_TABLES: dict = {}
+
+
+def _values(idx: torch.Tensor, dtype, lo: float, hi: float, clip
+            ) -> torch.Tensor:
+    """sqrt(2) * erf_inv(uniform(lo, hi)), optionally clipped, as jax
+    computes it in ``dtype``, of the random bits that decide a value:
+    the top 23 (float32) or the low 8 (bfloat16), as int32."""
+    if dtype == torch.bfloat16:
+        y = _bf16(_bf16(erf_inv(_uniform_bf16(idx, lo, hi)))
+                  * _bf16(torch.tensor(_SQRT2)).item())
+    else:
+        y = erf_inv(_uniform23(idx, lo, hi)) * _SQRT2
+    return y if clip is None else torch.clamp(y, *clip)
+
+
+def _table(device, dtype, lo: float, hi: float, clip,
+           chunk: int = 1 << 21) -> torch.Tensor:
+    """``_values`` of every index, built once per device and bounds."""
+    k = (str(device), dtype, lo, hi, clip)
+    if k not in _TABLES:
+        n = 256 if dtype == torch.bfloat16 else 1 << 23
+        idx = torch.arange(n, dtype=torch.int32, device=device)
+        _TABLES[k] = torch.cat([_values(idx[s:s + chunk], dtype, lo, hi,
+                                        clip)
+                                for s in range(0, n, chunk)]).to(dtype)
+    return _TABLES[k]
 
 
 def _draw(key: torch.Tensor, shape, dtype, lo: float, hi: float,
@@ -287,20 +355,21 @@ def _draw(key: torch.Tensor, shape, dtype, lo: float, hi: float,
     """sqrt(2) * erf_inv(uniform(lo, hi)) over ``shape``, optionally
     clipped, in float32 or bfloat16 as jax computes each, on the key's
     device.  The counters run over the whole flat shape; they are drawn
-    ``chunk`` at a time, so the int64 and float64 temporaries of a large
-    leaf stay a few hundred MB."""
+    ``chunk`` at a time, so the temporaries of a large leaf stay a few
+    hundred MB.  Each value is a function of a few of its random bits:
+    a bfloat16 draw, or a float32 draw of at least ``TABLE_MIN`` values,
+    looks it up in ``_table``."""
     n = math.prod(shape)
     out = torch.empty(n, dtype=dtype, device=key.device)
+    table = (_table(key.device, dtype, lo, hi, clip)
+             if dtype == torch.bfloat16 or n >= TABLE_MIN else None)
     for s in range(0, n, chunk):
         m = min(chunk, n - s)
-        if dtype == torch.bfloat16:
-            y = _bf16(_bf16(erf_inv(_uniform_bf16(key, m, lo, hi, s)))
-                      * _bf16(torch.tensor(_SQRT2)).item())
-        else:
-            y = erf_inv(uniform(key, m, lo, hi, s)) * _SQRT2
-        if clip is not None:
-            y = torch.clamp(y, *clip)
-        out[s:s + m] = y
+        bits = _bits32(key, m, s)
+        idx = (bits & 0xFF if dtype == torch.bfloat16
+               else (bits >> 9) & 0x7FFFFF)
+        out[s:s + m] = (table[idx] if table is not None
+                        else _values(idx, dtype, lo, hi, clip))
     return out.reshape(shape)
 
 

@@ -77,6 +77,38 @@ def test_chunked_draw_equals_one_chunk():
     assert torch.equal(whole, parts)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_table_draw_equals_elementwise_draw(monkeypatch, dtype):
+    """A draw read from the table of every value the deciding random bits
+    can give equals the elementwise chain on the same bits, and the
+    int32 threefry gives the int64 masked words it replaced (the
+    reference's rounds, written out here)."""
+    key = R.fold_in(R.prng_key(7), 99)
+    b = R._BOUNDS[dtype]
+    direct = R._values((R._bits32(key, 5000) >> 9) & 0x7FFFFF
+                       if dtype == torch.float32
+                       else R._bits32(key, 5000) & 0xFF,
+                       dtype, *b["erf"], b["clip"]).to(dtype)
+    monkeypatch.setattr(R, "TABLE_MIN", 1)
+    table = R.truncated_normal(key, -2.0, 2.0, (5000,), dtype)
+    assert torch.equal(table.view(torch.int16 if dtype == torch.bfloat16
+                                  else torch.int32),
+                       direct.view(torch.int16 if dtype == torch.bfloat16
+                                   else torch.int32))
+    mask, j = 0xFFFFFFFF, torch.arange(5000, dtype=torch.int64)
+    k1, k2 = (int(v) for v in key)
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x = [(0 + k1) & mask, (j + k2) & mask]
+    for i in range(5):
+        for r in ((13, 15, 26, 6), (17, 29, 16, 24))[i % 2]:
+            x[0] = (x[0] + x[1]) & mask
+            x[1] = (((x[1] << r) | (x[1] >> (32 - r))) & mask) ^ x[0]
+        x[0] = (x[0] + ks[(i + 1) % 3]) & mask
+        x[1] = (x[1] + ks[(i + 2) % 3] + i + 1) & mask
+    assert torch.equal(R.random_bits(key, 5000), x[0] ^ x[1])
+
+
 def test_erf_inv_matches_xla_on_every_uniform_value():
     """``erf_inv`` on all 2**23 float32 values ``uniform`` can give for
     ``normal`` (its whole domain, the sqrt branch near +-1 included):
