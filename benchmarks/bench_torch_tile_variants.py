@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time variants of the bf16 tensor-core body of ``flash_prefill`` on one
-NVIDIA card, in turns, at the slot prefill shapes of gemma3-4b (B 1,
+"""Time variants of the tensor-core bodies of ``flash_prefill`` (the bf16
+tile, ``attn_tile.cuh``, and the float32 one, ``attn_tile_f32.cuh``) on
+one NVIDIA card, in turns, at the slot prefill shapes of gemma3-4b (B 1,
 S 2048, H 8, Hkv 4, D 256), with the SWA window 1024 and without.
 
 Run from the repository root on a machine with a CUDA device and the
@@ -18,7 +19,12 @@ through its C entry point:
 - ``nocopy``   K/V copied only for the first ring stages: a wrong answer
                (max_abs_err shows it) whose time says what the copies
                cost;
-- ``nk64``     64-key tiles at D 256 (161 KB, one block an SM).
+- ``nk64``     64-key tiles at D 256 (161 KB, one block an SM);
+- ``f32_*``    the float32 tile (3xTF32): ``f32_base``; ``f32_nocopy``
+               as ``nocopy``; ``f32_unrolled``, the QK^T chunk loop
+               unrolled (ptxas spills at D 256); ``f32_kw1``, one warp a
+               16 query rows (not two sharing each key tile);
+               ``f32_cvt``, the TF32 rounding by cvt.rna.tf32.f32.
 
 Prints one JSON line per build and per (variant, window, round): two
 rounds, the second in reverse order, so that a drift of the card shows.
@@ -47,6 +53,18 @@ VARIANTS = {
                 "load(t + STAGES - 1);")],
     "nk64": [("attn_tile.cuh", "return Launch<256, 32, 2>::run",
               "return Launch<256, 64, 2>::run")],
+    "f32_base": [],
+    "f32_nocopy": [("attn_tile_f32.cuh",
+                    "if (it + STAGES - 1 < ntiles) load(it + STAGES - 1);",
+                    "if (it + STAGES - 1 < min(ntiles, STAGES)) "
+                    "load(it + STAGES - 1);")],
+    "f32_unrolled": [("attn_tile_f32.cuh", "#pragma unroll 1\n",
+                      "#pragma unroll\n")],
+    "f32_kw1": [("attn_tile_f32.cuh", "kKeyWarps = 2;", "kKeyWarps = 1;")],
+    "f32_cvt": [("attn_tile_f32.cuh",
+                 "return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;",
+                 "uint32_t r; asm(\"cvt.rna.tf32.f32 %0, %1;\" : \"=r\"(r) "
+                 ": \"f\"(x)); return r;")],
 }
 
 
@@ -109,27 +127,34 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     s, h, hkv, d = 2048, 8, 4, 256
-    q = torch.randn(1, s, h, d, generator=gen, device="cuda").bfloat16()
-    k = torch.randn(1, s, hkv, d, generator=gen, device="cuda").bfloat16()
-    v = torch.randn(1, s, hkv, d, generator=gen, device="cuda").bfloat16()
+    qkv = {dt: [t.to(dt) for t in (
+        torch.randn(1, s, h, d, generator=gen, device="cuda"),
+        torch.randn(1, s, hkv, d, generator=gen, device="cuda"),
+        torch.randn(1, s, hkv, d, generator=gen, device="cuda"))]
+        for dt in (torch.float32, torch.bfloat16)}
     ln = torch.tensor([s], dtype=torch.int32, device="cuda")
-    out = torch.empty_like(q)
     stream = torch.cuda.current_stream().cuda_stream
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     ok = len(fns) == len(names)   # every variant built
     for win in (0, 1024):
-        ref = flash_prefill_ref(q, k, v, ln, window=win).float()
+        refs = {dt: flash_prefill_ref(*t, ln, window=win).float()
+                for dt, t in qkv.items()}
         for rnd, order in enumerate((names, names[::-1])):
             for n in order:
                 if n not in fns:
                     continue
+                f32 = n.startswith("f32_")
+                dt = torch.float32 if f32 else torch.bfloat16
+                q, k, v = qkv[dt]
+                out, ref = torch.empty_like(q), refs[dt]
 
                 def call(fn=fns[n]):
                     return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                               ln.data_ptr(), out.data_ptr(), 1, s, s, h,
-                              hkv, d, win, 0, d ** -0.5, 1, stream)
+                              hkv, d, win, 0, d ** -0.5, 0 if f32 else 1,
+                              stream)
                 rc = call()
                 torch.cuda.synchronize()
                 err = (out.float() - ref).abs().max().item()
@@ -143,7 +168,8 @@ def main() -> int:
                     call()
                 end.record()
                 torch.cuda.synchronize()
-                ok = ok and rc == 0 and (n == "nocopy" or err <= 3e-2)
+                ok = ok and rc == 0 and ("nocopy" in n
+                                         or err <= (3e-5 if f32 else 3e-2))
                 print(json.dumps(dict(
                     variant=n, window=win, round=rnd + 1, rc=rc,
                     max_abs_err=err, ms=start.elapsed_time(end) / 50,

@@ -24,7 +24,9 @@ Phases, each printing one JSON line:
             zero, G 2, 3 and 16, float32 and bf16); both paged kernels
             at granite-moe-3b-a800m's G 3 (H 24, Hkv 8, D 64): its
             serving shape, long contexts, chunks at context 0 and across
-            page boundaries;
+            page boundaries; the float32 twins of the bf16-only prefill
+            cases (G 3, 5 and 16; D 8, 40, 48, 128, 192 and 256; D 256
+            with Sq no multiple of 64), which the 3xTF32 tile takes;
    sampling the port's threefry PRNG on the card bit for bit against
             values recorded from jax 0.9.0 (``row_keys``, ``split``,
             ``uniform``, ``gumbel``), the XLA-rounded logs of every
@@ -193,15 +195,19 @@ Phases, each printing one JSON line:
             ``flash_prefill`` also at hymba-1.5b's G 5), and
             ``paged_attention`` at long contexts and glm4-9b's group
             shape; each kernel's device time a call from a profiler
-            trace;
+            trace; then the same serving-shape rows in float32, the
+            library call on SDPA's memory-efficient backend (K/V
+            expanded to H heads), the bound at 3xTF32's 165 TFLOP/s and
+            the CUDA cores' beside it;
 12. profile host wall and device time, by kind of kernel
             (torch.profiler), of one full-width bf16 paged mixed_step
-            (without and with 4 adapters), one decode_batch of 8 rows
+            (without and with 4 adapters; and in float32, the engines'
+            default dtype), one decode_batch of 8 rows
             and one spec_decode_step of 8 lanes of 5 rows, granite's
             mixed_step and decode_batch beside its weight-read bound,
-            one gemma3-4b slot prefill of 2048 tokens and one 4-slot
-            decode step, and a 512-token prefill and a 4-slot decode
-            step of hymba-1.5b and of xlstm-1.3b.
+            one gemma3-4b slot prefill of 2048 tokens (bf16 and float32)
+            and one 4-slot decode step, and a 512-token prefill and a
+            4-slot decode step of hymba-1.5b and of xlstm-1.3b.
 
 Opt-in, not among the default phases (it needs four cards):
 
@@ -273,6 +279,10 @@ SRC = ROOT / "src"
 
 PEAK_BYTES_PER_S = 3.35e12                    # H100 SXM HBM3
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # CUDA cores / TC
+# float32 on the tensor cores as three TF32 products (495 TFLOP/s of
+# TF32): the kernels' float32 bound; PEAK_FLOPS's 67e12 stays the CUDA
+# cores' (the train phase's MFU, each float32 row's bound_cuda_core_ms)
+PEAK_FLOPS_3XTF32 = 495e12 / 3
 TOL = {"float32": (2e-5, 3e-5), "bfloat16": (2e-2, 3e-2)}  # decode, prefill
 KERNEL_INFO = {
     "paged_attention": dict(
@@ -787,6 +797,49 @@ def check_kernels(torch, ops_mod):
                                [s_h]), dt, 1,
                     f"hymba-1.5b B1 S{s_h} H25 Hkv5 D64 window{win}",
                     window=win)
+    # the float32 twins of the bf16-only prefill cases above, which the
+    # 3xTF32 tile (attn_tile_f32.cuh) takes: G 3, 5 and 16, D 48, 128,
+    # 192 and 256, D 256 with Sq no multiple of 64, ragged and window-edge
+    # rows; and D 8 and 40, which it pads to 32 and 64 columns.  On a
+    # generator of their own.
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    for b, h, hkv, d, page, s in [
+            (2, 9, 3, 64, 16, 40), (2, 10, 2, 64, 16, 40),
+            (1, 16, 1, 64, 16, 64), (2, 4, 2, 48, 16, 40),
+            (2, 8, 4, 128, 16, 64), (1, 8, 4, 256, 16, 64),
+            (2, 8, 4, 8, 16, 40), (2, 8, 2, 40, 8, 24)]:
+        compare("paged_prefill",
+                prefill_case(torch, gen, b, h, hkv, d, page, s, 24, f32),
+                f32, 1, f"B{b} H{h} Hkv{hkv} D{d} page{page} S{s}")
+    for b, sq, sk, h, hkv, d, win, qoff in [
+            (1, 200, 200, 9, 3, 64, 0, 0), (2, 150, 250, 10, 2, 64, 64, 100),
+            (1, 100, 100, 16, 1, 64, 0, 0), (2, 130, 130, 4, 2, 48, 0, 0),
+            (1, 300, 300, 8, 4, 128, 128, 0), (1, 300, 300, 4, 2, 192, 0, 0),
+            (1, 1000, 1000, 8, 4, 256, 0, 0),
+            (2, 1000, 1000, 8, 4, 256, 300, 0),
+            (2, 130, 170, 4, 2, 8, 0, 40), (1, 150, 150, 6, 2, 40, 32, 0)]:
+        compare("flash_prefill",
+                flash_case(torch, gen, b, sq, sk, h, hkv, d, f32), f32, 1,
+                f"B{b} Sq{sq} Sk{sk} H{h} Hkv{hkv} D{d} window{win} "
+                f"q_offset{qoff}", window=win, q_offset=qoff)
+    # a D the float32 tile does not take raises before a launch
+    before = (pp.launches, fp.launches)
+    for kernel, fn, args in (
+            ("paged_prefill", ops_mod.paged_prefill, prefill_case(
+                torch, gen, 1, 4, 2, 36, 8, 16, 4, f32)),
+            ("flash_prefill", ops_mod.flash_attention, flash_case(
+                torch, gen, 1, 16, 16, 4, 2, 264, f32))):
+        try:
+            fn(*args)
+            refused = False
+        except ValueError:
+            refused = True
+        results.append(dict(kernel=kernel, dtype="float32",
+                            case=f"D {args[0].shape[-1]} refused",
+                            max_abs_err=0.0, tol=0.0,
+                            ok=refused and (pp.launches,
+                                            fp.launches) == before))
     return results
 
 
@@ -830,8 +883,10 @@ def full_width_step(torch, cfg):
     ``prefill_step``, ``decode_batch`` and ``spec_decode_step`` over the
     decode rows' tables, 7 lanes of 5 rows and an idle one) once with
     the kernels and once with the plain versions, on the same weights
-    and pool."""
+    and pool.  Returns the paged kernels' launches in the kernel runs."""
     from repro_torch.engine import paged_model as PM
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import paged_prefill as pp
     params, pool, a, page = step_inputs(torch, cfg, torch.float32)
     b, (kk, s) = a["dec_tokens"].shape[0], a["pre_tokens"].shape
     steps = {
@@ -857,11 +912,16 @@ def full_width_step(torch, cfg):
     steps["spec_decode_step"] = lambda p, impl: PM.spec_decode_step(
         params, p, spec_tokens, spec_ctx, spec_len, a["dec_block_tables"],
         cfg=cfg, page_size=page, impl=impl)[0].flatten(0, 1)
+    counts = dict.fromkeys(("paged_attention", "paged_prefill"), 0)
     for step, run in steps.items():
         outs = {}
         for impl in ("kernel", "ref"):
             p = PM.PagePool(pool.k.clone(), pool.v.clone())
+            before = (pa.launches, pp.launches)
             outs[impl] = (run(p, impl).float(), p)
+            if impl == "kernel":
+                counts["paged_attention"] += pa.launches - before[0]
+                counts["paged_prefill"] += pp.launches - before[1]
         torch.cuda.synchronize()
         (lk, pk), (lr, prf) = outs["kernel"], outs["ref"]
         scale = lr.abs().max().item()
@@ -880,6 +940,7 @@ def full_width_step(torch, cfg):
                                  "logits disagree")
         del outs
     del params, pool
+    return counts
 
 
 # ------------------------------------------------------------ serving
@@ -2121,7 +2182,8 @@ def slot_step(torch, cfg, fp, s=SLOT_STEP_PROMPT):
     and every cache field (K/V, recurrent states) within STEP_REL_TOL of
     its largest magnitude, ring positions equal, the kernel launched
     once an attention layer, by window (``flash_windows``), and never
-    with the plain version."""
+    with the plain version.  Returns the kernel run's launches and its
+    launches by window."""
     from repro_torch.models import model as M
     dev, n_dec = "cuda", SLOT_STEP_DECODES
     cache_len = s + n_dec
@@ -2174,6 +2236,7 @@ def slot_step(torch, cfg, fp, s=SLOT_STEP_PROMPT):
         raise AssertionError("full-width slot step: kernel and plain "
                              "disagree")
     del params, outs
+    return nk, wk
 
 
 def slot_serve_once(torch, cfg, prompts, counters, ecfg=SLOT_ECFG,
@@ -2372,11 +2435,11 @@ def moe_phase(torch, granite, deepseek, counters):
     paged step functions in float32, kernels against plain versions; the
     granite bf16 serve twice and once with the async loop; deepseek-v2
     cut to 2 layers through the slot engine in bf16, twice.  Returns the
-    granite serve's launches."""
+    granite serve's launches and those of its float32 step functions."""
     import numpy as np
     pa, pp = counters["paged_attention"], counters["paged_prefill"]
     moe_ffn_check(torch, granite)
-    full_width_step(torch, granite)
+    f32_launches = full_width_step(torch, granite)
     first = serve(torch, granite, pa, pp)
     run = serve_once(torch, granite, serve_prompts(granite)[1], pa, pp,
                      async_loop=True)
@@ -2398,7 +2461,7 @@ def moe_phase(torch, granite, deepseek, counters):
     if not ok:
         raise AssertionError("granite async serve failed its checks")
     deepseek_serve(torch, deepseek, counters)
-    return first["launches"]
+    return first["launches"], f32_launches
 
 
 def deepseek_serve(torch, cfg, counters):
@@ -2531,10 +2594,12 @@ def ssm_phase(torch, hymba, xlstm, counters):
     trainers, card against CPU; (e) the scans' share of a prefill's
     and a decode step's wall (the profile phase traces the same
     steps).  Returns the hymba serve's launches and its
-    ``flash_prefill`` launches by window."""
+    ``flash_prefill`` launches by window, and those of the float32 step
+    (``slot_step``'s)."""
     from repro_torch.configs import get_reduced_config
     t0 = time.perf_counter()
-    slot_step(torch, hymba, counters["flash_prefill"], HYMBA_STEP_PROMPT)
+    f32_launches = slot_step(torch, hymba, counters["flash_prefill"],
+                             HYMBA_STEP_PROMPT)
     emit("ssm_step_done", seconds=time.perf_counter() - t0)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2554,7 +2619,7 @@ def ssm_phase(torch, hymba, xlstm, counters):
     if after != before:
         raise AssertionError(f"a kernel launched in training: {before} -> "
                              f"{after}")
-    return serves[hymba.name]
+    return (*serves[hymba.name], f32_launches)
 
 
 # ------------------------------------------------------------ train
@@ -3866,16 +3931,45 @@ def kernel_device_ms(torch, fn, name, iters=20):
     return "not measured"
 
 
-def decode_row(torch, gen, launches, h, hkv, d, page, nb, lengths,
-               num_pages, **extra):
-    """One ``paged_attention`` timing row, bf16: the kernel, its plain
-    version and SDPA over K/V gathered beforehand, on ``lengths`` rows
-    of a ``num_pages`` pool with block tables ``nb`` wide; the planner's
-    split beside it."""
+def library_sdpa(torch, dtype, q, k, v, mask=None, is_causal=False):
+    """The library call beside a kernel: one
+    ``F.scaled_dot_product_attention`` over (B, H, S, D) tensors laid out
+    beforehand, and the name of its backend.  bf16: the default backend
+    with ``enable_gqa``.  float32: the memory-efficient backend (CUTLASS,
+    each float32 product as three TF32 products, so the tensor cores at
+    the float32 tolerance; the math backend's plain float32 matmuls are
+    no yardstick), K/V expanded to H heads here, since that backend may
+    refuse ``enable_gqa``; a call it refuses raises."""
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    if dtype == torch.bfloat16:
+        return (lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, is_causal=is_causal, enable_gqa=True),
+            "default, enable_gqa")
+    g = q.shape[1] // k.shape[1]
+    k, v = (t.repeat_interleave(g, dim=1).contiguous() for t in (k, v))
+
+    def call():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, is_causal=is_causal)
+    return call, "EFFICIENT_ATTENTION, K/V expanded to H heads"
+
+
+def dtype_label(torch, dtype):
+    return "bf16" if dtype == torch.bfloat16 else "float32"
+
+
+def decode_row(torch, gen, launches, h, hkv, d, page, nb, lengths,
+               num_pages, dtype=None, **extra):
+    """One ``paged_attention`` timing row (bf16 unless ``dtype``): the
+    kernel, its plain version and SDPA (``library_sdpa``) over K/V
+    gathered beforehand, on ``lengths`` rows of a ``num_pages`` pool
+    with block tables ``nb`` wide; the planner's split beside it."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import paged_attention as pa
-    dt, esize = torch.bfloat16, 2
+    dt = dtype or torch.bfloat16
+    esize = torch.tensor([], dtype=dt).element_size()
     b = len(lengths)
     args = decode_case(torch, gen, b, h, hkv, d, page, nb, dt,
                        lengths=lengths, num_pages=num_pages)
@@ -3890,6 +3984,9 @@ def decode_row(torch, gen, launches, h, hkv, d, page, nb, lengths,
     mask = (torch.arange(nb * page, device="cuda")[None] < ln[:, None])[
         :, None, None, :]
     qs = q[:, :, None, :]                                 # (B, H, 1, D)
+    library, backend = library_sdpa(torch, dt, qs, k, v, mask)
+    lib_err = (library()[:, :, 0].float() - plain.float()).abs().max() \
+        .item()
     live = int(ln.sum())
     nbytes = (2 * live * hkv * d * esize + 2 * q.numel() * esize
               + bt.numel() * 4 + ln.numel() * 4)
@@ -3901,28 +3998,28 @@ def decode_row(torch, gen, launches, h, hkv, d, page, nb, lengths,
         "paged_attention", launches, err,
         time_ms(torch, lambda: ops.paged_attention(*args)),
         time_ms(torch, lambda: ref.paged_attention_ref(*args)),
-        time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qs, k, v, attn_mask=mask, enable_gqa=True)),
-        nbytes, flops, "bfloat16", device_ms=kernel_device_ms(
+        time_ms(torch, library), nbytes, flops, str(dt)[6:],
+        device_ms=kernel_device_ms(
             torch, lambda: ops.paged_attention(*args), "paged_attention"),
-        pages_per_split=pps, n_splits=n_splits,
+        pages_per_split=pps, n_splits=n_splits, library_backend=backend,
+        library_max_abs_err=lib_err,
         case=f"B{b} H{h} Hkv{hkv} D{d} page{page} NB{nb} lengths "
-        f"{int(ln.min())}-{int(ln.max())} bf16", **extra)
+        f"{int(ln.min())}-{int(ln.max())} {dtype_label(torch, dt)}",
+        **extra)
 
 
-def timing(torch, cfg, launches, long_rows=True, **extra):
+def timing(torch, cfg, launches, long_rows=True, dtype=None, **extra):
     """Phase 11: kernel, plain and library times and the bound, at the
-    serving shapes (bf16, ``cfg``'s heads: H 16, Hkv 8, D 64 for
-    qwen3-0.6b, H 24, Hkv 8, D 64 for granite-moe-3b-a800m; page 16, a
-    pool of 1025 pages, block tables 52 wide, 8 decode rows, 2 chunks of
-    64); then, with ``long_rows``, ``paged_attention`` at long contexts
-    and at glm4-9b's group shape, on lines of their own.  ``extra``
-    fields go on each serving-shape line."""
-    import torch.nn.functional as F
+    serving shapes (bf16 unless ``dtype``, ``cfg``'s heads: H 16, Hkv 8,
+    D 64 for qwen3-0.6b, H 24, Hkv 8, D 64 for granite-moe-3b-a800m;
+    page 16, a pool of 1025 pages, block tables 52 wide, 8 decode rows,
+    2 chunks of 64); then, with ``long_rows``, ``paged_attention`` at
+    long contexts and at glm4-9b's group shape, on lines of their own.
+    ``extra`` fields go on each serving-shape line."""
     from repro_torch.kernels import ops, ref
-    dt, page, h, hkv, d, nb = torch.bfloat16, 16, cfg.n_heads, \
-        cfg.n_kv_heads, cfg.head_dim, 52
-    esize = 2
+    dt = dtype or torch.bfloat16
+    page, h, hkv, d, nb = 16, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 52
+    esize = torch.tensor([], dtype=dt).element_size()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
     lines = []
@@ -3936,7 +4033,7 @@ def timing(torch, cfg, launches, long_rows=True, **extra):
     # decode: 8 rows with serving lengths (prompt 128..768 + 32 new)
     lengths = torch.randint(129, 800, (8,), generator=gen, device="cuda")
     lines.append(decode_row(torch, gen, launches, h, hkv, d, page, nb,
-                            lengths, 1025, **extra))
+                            lengths, 1025, dtype=dt, **extra))
 
     # prefill: 2 chunks of 64 at serving contexts
     s = 64
@@ -3954,6 +4051,9 @@ def timing(torch, cfg, launches, long_rows=True, **extra):
     pmask = ((kpos[None, None] <= qpos[:, :, None])
              & (kpos[None, None] < (cx + ck)[:, None, None]))[:, None]
     qs = q.transpose(1, 2)                                # (B, H, S, D)
+    library, backend = library_sdpa(torch, dt, qs, k, v, pmask)
+    lib_err = (library().transpose(1, 2).float() - plain.float()).abs() \
+        .max().item()
     pairs = sum(int(c) * int(x) + int(c) * (int(c) + 1) // 2
                 for x, c in zip(cx.tolist(), ck.tolist()))
     keys = int((cx + ck).sum())
@@ -3964,12 +4064,12 @@ def timing(torch, cfg, launches, long_rows=True, **extra):
         "paged_prefill", launches, err,
         time_ms(torch, lambda: ops.paged_prefill(*pargs)),
         time_ms(torch, lambda: ref.paged_prefill_ref(*pargs)),
-        time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qs, k, v, attn_mask=pmask, enable_gqa=True)),
-        nbytes, flops, "bfloat16", device_ms=kernel_device_ms(
+        time_ms(torch, library), nbytes, flops, str(dt)[6:],
+        device_ms=kernel_device_ms(
             torch, lambda: ops.paged_prefill(*pargs), "paged_prefill"),
+        library_backend=backend, library_max_abs_err=lib_err,
         case=f"K2 S{s} H{h} Hkv{hkv} D{d} page{page} NB{nb} ctx 0 and 704 "
-        "bf16", **extra))
+        f"{dtype_label(torch, dt)}", **extra))
     if not long_rows:
         return lines
 
@@ -3991,23 +4091,24 @@ def timing(torch, cfg, launches, long_rows=True, **extra):
     return lines
 
 
-def flash_timing(torch, cfg, launches, by_window, s=2048, **extra):
+def flash_timing(torch, cfg, launches, by_window, s=2048, dtype=None,
+                 **extra):
     """flash_prefill at a slot path's prefill shapes, ``cfg``'s heads
     (gemma3-4b: H 8, Hkv 4, D 256; hymba-1.5b: H 25, Hkv 5, D 64), one
-    ``s``-token prompt, bf16, with the SWA layers' window and without
-    (the DENSE or global layers).  The first row is returned, for the
-    ``kernels`` line; both go into timing lines.  Each row's
-    ``launches_in_mode`` is the slot serve's launches with its window,
+    ``s``-token prompt, bf16 unless ``dtype``, with the SWA layers'
+    window and without (the DENSE or global layers).  The first row is
+    returned, for the ``kernels`` line; both go into timing lines.  Each
+    row's ``launches_in_mode`` is the path's launches with its window,
     as the wrapper counted them (``by_window``); ``extra`` fields go on
     each line."""
-    import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     from repro_torch.models import layers
+    dt = dtype or torch.bfloat16
+    esize = torch.tensor([], dtype=dt).element_size()
     h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     gen = torch.Generator(device="cuda")
     gen.manual_seed(6)
-    q, k, v, ln = flash_case(torch, gen, 1, s, s, h, hkv, d, torch.bfloat16,
-                             [s])
+    q, k, v, ln = flash_case(torch, gen, 1, s, s, h, hkv, d, dt, [s])
     # SDPA's (B, H, S, D) layout, made before timing
     qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     lines = []
@@ -4016,18 +4117,14 @@ def flash_timing(torch, cfg, launches, by_window, s=2048, **extra):
         plain = ref.flash_prefill_ref(q, k, v, ln, window=win)
         err = (out.float() - plain.float()).abs().max().item()
         mask = layers.causal_mask(s, s, window=win, device="cuda")
-        if win:
-            def library():
-                return F.scaled_dot_product_attention(
-                    qs, ks, vs, attn_mask=mask, enable_gqa=True)
-        else:
-            def library():
-                return F.scaled_dot_product_attention(
-                    qs, ks, vs, is_causal=True, enable_gqa=True)
+        library, backend = (
+            library_sdpa(torch, dt, qs, ks, vs, mask=mask) if win
+            else library_sdpa(torch, dt, qs, ks, vs, is_causal=True))
         lib_err = (library().transpose(1, 2).float()
                    - plain.float()).abs().max().item()
         pairs = int(mask.sum())               # live (query, key) pairs
-        nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2 + ln.numel() * 4
+        nbytes = 2 * q.numel() * esize + 2 * k.numel() * esize \
+            + ln.numel() * 4
         flops = 4 * pairs * h * d
         lines.append(kernel_line(
             "flash_prefill", launches, err,
@@ -4035,26 +4132,37 @@ def flash_timing(torch, cfg, launches, by_window, s=2048, **extra):
                                                        window=win)),
             time_ms(torch, lambda: ref.flash_prefill_ref(q, k, v, ln,
                                                          window=win)),
-            time_ms(torch, library), nbytes, flops, "bfloat16",
-            case=f"B1 S{s} H{h} Hkv{hkv} D{d} bf16 window {win}",
+            time_ms(torch, library), nbytes, flops, str(dt)[6:],
+            case=f"B1 S{s} H{h} Hkv{hkv} D{d} {dtype_label(torch, dt)} "
+            f"window {win}",
             launches_in_mode=by_window.get(win, 0),
             device_ms=kernel_device_ms(
                 torch, lambda: ops.flash_attention(q, k, v, ln, window=win),
                 "flash_prefill"),
+            library_backend=(backend if win else backend + ", is_causal"),
             library_max_abs_err=lib_err, **extra))
     return lines[:1]
 
 
 def kernel_line(name, launches, err, ms, plain_ms, library_ms, nbytes,
                 flops, dtype, **extra):
+    """One timing line.  ``bound_ms``: the larger of the bytes over 3.35
+    TB/s and the operations over the card's peak for ``dtype``: bf16 on
+    the tensor cores; float32 as three TF32 products on the tensor cores
+    (``PEAK_FLOPS_3XTF32``), with the CUDA cores' bound beside it
+    (``bound_cuda_core_ms``)."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    peak = PEAK_FLOPS_3XTF32 if dtype == "float32" else PEAK_FLOPS[dtype]
+    t_ops = flops / peak * 1e3
+    if dtype == "float32":
+        extra["bound_cuda_core_ms"] = max(
+            t_bytes, flops / PEAK_FLOPS["float32"] * 1e3)
     line = dict(name=name, route="cuda", **KERNEL_INFO[name],
                 launches=launches[name], max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 library_ms=library_ms, **extra)
-    emit("timing", **line, bytes=nbytes, flops=flops)
+    emit("timing", **line, dtype=dtype, bytes=nbytes, flops=flops)
     return line
 
 
@@ -4102,7 +4210,8 @@ def profile_step(torch, cfg):
     """Phase 12: one full-width bf16 paged mixed step (8 decode rows,
     chunks of 64 and 37), ended by a synchronize as the engine's
     sampling ends it; then the same step with a bank of 4 adapters, the
-    rows on 4 distinct adapters and the base model."""
+    rows on 4 distinct adapters and the base model; then the step in
+    float32, the engines' default dtype."""
     from repro_torch import random as R
     from repro_torch.engine import paged_model as PM
     params, pool, a, page = step_inputs(torch, cfg, torch.bfloat16)
@@ -4134,6 +4243,10 @@ def profile_step(torch, cfg):
          pre_adapter_ids=ids["pre_adapter_ids"].tolist(),
          **device_profile(torch, step_with_lora, 10))
     del params, pool, bank
+    params, pool, a, page = step_inputs(torch, cfg, torch.float32)
+    emit("profile", step="mixed_step", model=cfg.name, dtype="float32",
+         **device_profile(torch, step, 10))
+    del params, pool
 
 
 def profile_moe(torch, cfg):
@@ -4172,7 +4285,8 @@ def profile_slot(torch, cfg):
     """Phase 12: the slot path at full width in bf16: one prefill of a
     2048-token prompt into a one-row cache, and one decode step of 4
     slots at positions 1200-3000 of a 4096-token cache, each ended by a
-    synchronize as the engine's sampling ends it."""
+    synchronize as the engine's sampling ends it; then the prefill in
+    float32, the engines' default dtype."""
     from repro_torch.models import model as M
     dev, bf16, s = "cuda", torch.bfloat16, 2048
     params = M.init(cfg, seed=0, dtype=bf16, device=dev)
@@ -4202,9 +4316,29 @@ def profile_slot(torch, cfg):
          dtype="bfloat16", slots=SLOT_ECFG["max_slots"],
          **device_profile(torch, decode, 10))
     del params, one, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = M.init(cfg, seed=0, dtype=torch.float32, device=dev)
+    one = M.init_cache(cfg, 1, SLOT_ECFG["max_len"], torch.float32, dev)
+    emit("profile", step="slot prefill", model=cfg.name, dtype="float32",
+         prompt=s, **device_profile(torch, prefill, 3))
+    del params, one
 
 
 # ------------------------------------------------------------ main
+def kernel_label(mangled):
+    """``paged_prefill_kernel_f32<64,64,2,256>`` for a kernel's mangled
+    name (the last 40 characters of any other name)."""
+    import re
+    k = re.search(r"([a-z_]+_kernel(?:_tc|_f32)?)I(.*?)EEv", mangled)
+    if not k:
+        return mangled[-40:]
+    types = {"f": "float", "13__nv_bfloat16": "bf16"}
+    args = [a or types[b] for a, b in re.findall(
+        r"Li(\d+)E|^(f|13__nv_bfloat16)", k.group(2) + "E")]
+    return f"{k.group(1)}<{','.join(args)}>"
+
+
 def ptxas_summary(log):
     """Registers and spills of each compiled kernel from ``ptxas -v``,
     and a count of its other notes by code (C7519 and the like: wgmma
@@ -4215,12 +4349,7 @@ def ptxas_summary(log):
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?(\w+)", line)
         if m:
-            k = re.search(r"([a-z_]+_kernel(?:_tc)?)I(.*?)EEv", m.group(1))
-            fn = m.group(1)[-40:]
-            if k:
-                args = [a or b for a, b in re.findall(
-                    r"Li(\d+)E|^(f|13__nv_bfloat16)", k.group(2) + "E")]
-                fn = f"{k.group(1)}<{','.join(args)}>"
+            fn = kernel_label(m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m and fn:
@@ -4233,6 +4362,30 @@ def ptxas_summary(log):
         if m:
             notes[m.group(1)] = notes.get(m.group(1), 0) + 1
     return dict(functions=fns, notes=notes)
+
+
+def sass_mma_counts(lib):
+    """The tensor-core instructions of each kernel in a built library,
+    by opcode (``HMMA.1684.F32.TF32`` and the like for mma.sync,
+    ``HGMMA.*`` for wgmma), from ``cuobjdump -sass``; "not measured"
+    without the tool."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return "not measured"
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, check=True).stdout
+    fns, fn = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = fns.setdefault(kernel_label(m.group(1)), {})
+            continue
+        m = re.search(r"\b(HG?MMA\.[\w.]+)", line)
+        if m and fn is not None:
+            fn[m.group(1)] = fn.get(m.group(1), 0) + 1
+    return fns
 
 
 PHASES = ("kernels", "sampling", "step", "serve", "lora", "tiers", "spec",
@@ -4337,14 +4490,26 @@ def main() -> int:
 
     t0 = time.perf_counter()
     reports = build.build()
-    emit("build", seconds=time.perf_counter() - t0, kernels=list(
-        build.KERNELS), ptxas={n: ptxas_summary(log)
-                               for n, log in reports.items()})
+    seconds = time.perf_counter() - t0
+    sass = {n: sass_mma_counts(build.library_path(n)) for n in build.KERNELS}
+    emit("build", seconds=seconds, kernels=list(build.KERNELS),
+         ptxas={n: ptxas_summary(log) for n, log in reports.items()},
+         sass_mma=sass)
 
     starts = []                 # (phase, start time), in the order run
     if "kernels" in only:
         starts.append(("kernels", time.perf_counter()))
         results = check_kernels(torch, ops)
+        # every float32 prefill kernel runs on the tensor cores (3xTF32)
+        for n in ("paged_prefill", "flash_prefill"):
+            if not isinstance(sass[n], dict):
+                continue                # no cuobjdump: not measured
+            f32 = {f: mma for f, mma in sass[n].items() if "_f32<" in f}
+            results.append(dict(
+                kernel=n, dtype="float32", case="float32 kernels: TF32 HMMA",
+                max_abs_err=0.0, tol=0.0, sass_mma=f32,
+                ok=bool(f32) and all(any("TF32" in o for o in mma)
+                                     for mma in f32.values())))
         for r in results:
             emit("kernel_check", **r)
         if not all(r["ok"] for r in results):
@@ -4364,9 +4529,12 @@ def main() -> int:
         KERNEL_INFO, 0)
     fit_launches = sim_launches = launches
     slot_by_window, ssm_by_window = {}, {}
+    # each model's float32 step functions' launches (the step, moe,
+    # slot_step and ssm phases): the float32 timing rows' counts
+    f32_launches = {}
     if "step" in only:
         starts.append(("step", time.perf_counter()))
-        full_width_step(torch, cfg)
+        f32_launches[cfg.name] = full_width_step(torch, cfg)
     if "serve" in only:
         starts.append(("serve", time.perf_counter()))
         launches = serve(torch, cfg, pa, pp)["launches"]
@@ -4395,7 +4563,7 @@ def main() -> int:
         emit("launch_done", seconds=time.perf_counter() - t0)
     if "slot_step" in only:
         starts.append(("slot_step", time.perf_counter()))
-        slot_step(torch, gemma, fp)
+        f32_launches[gemma.name] = slot_step(torch, gemma, fp)
     if "slot_serve" in only:
         starts.append(("slot_serve", time.perf_counter()))
         slot_launches, slot_by_window = slot_serve(torch, gemma, {
@@ -4403,15 +4571,15 @@ def main() -> int:
     if "moe" in only:
         starts.append(("moe", time.perf_counter()))
         t0 = time.perf_counter()
-        moe_launches = moe_phase(torch, granite, deepseek_cut(
-            get_config("deepseek-v2-236b")), {
+        moe_launches, f32_launches[granite.name] = moe_phase(
+            torch, granite, deepseek_cut(get_config("deepseek-v2-236b")), {
                 "flash_prefill": fp, "paged_attention": pa,
                 "paged_prefill": pp})
         emit("moe_done", seconds=time.perf_counter() - t0)
     if "ssm" in only:
         starts.append(("ssm", time.perf_counter()))
         t0 = time.perf_counter()
-        ssm_launches, ssm_by_window = ssm_phase(
+        ssm_launches, ssm_by_window, f32_launches[hymba.name] = ssm_phase(
             torch, hymba, get_config("xlstm-1.3b"), {
                 "flash_prefill": fp, "paged_attention": pa,
                 "paged_prefill": pp})
@@ -4438,6 +4606,21 @@ def main() -> int:
                model=granite.name)
         flash_timing(torch, hymba, ssm_launches, ssm_by_window,
                      s=HYMBA_FLASH_SEQ, model=hymba.name)
+        # float32, the engines' default dtype, at the same shapes; each
+        # row's launches are its model's float32 step functions' (the
+        # step, moe, slot_step and ssm phases)
+        f32 = torch.float32
+        for m in (cfg, granite):
+            timing(torch, m, {**dict.fromkeys(KERNEL_INFO, 0),
+                              **f32_launches.get(m.name, {})},
+                   long_rows=False, dtype=f32, model=m.name,
+                   launches_path=f"{m.name} float32 step functions")
+        for m, s_ in ((gemma, 2048), (hymba, HYMBA_FLASH_SEQ)):
+            n, by_window = f32_launches.get(m.name, (0, {}))
+            flash_timing(torch, m, {**dict.fromkeys(KERNEL_INFO, 0),
+                                    "flash_prefill": n},
+                         by_window, s=s_, dtype=f32, model=m.name,
+                         launches_path=f"{m.name} float32 slot step")
         # each path's launches: the serves of qwen3-0.6b (the kernels'
         # own ``launches``), granite-moe-3b-a800m, gemma3-4b and
         # hymba-1.5b, and the fit and the crash recovery of the sim phase

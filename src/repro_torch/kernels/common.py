@@ -83,14 +83,16 @@ def check_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def check_tile_head_dim(q: torch.Tensor) -> None:
-    """The bf16 bodies of the prefill kernels run on the tensor cores in
-    steps of 16 along D, with at most 256 columns: D a multiple of 16,
-    at most 256.  float32 runs the CUDA-core bodies, which take any D
-    of whole 16-byte vectors."""
+    """Both bodies of the prefill kernels run on the tensor cores, with
+    at most 256 columns of D: bf16 in steps of 16 along D (wgmma), D a
+    multiple of 16; float32 in steps of 8 (mma.sync m16n8k8, 3xTF32), D
+    a multiple of 8.  Any other D raises: no other body is left to take
+    it."""
     d = q.shape[-1]
-    if q.dtype == torch.bfloat16 and (d % 16 or d > 256):
-        raise ValueError(f"head_dim {d} in bfloat16 must be a multiple of "
-                         "16 and at most 256")
+    step = 16 if q.dtype == torch.bfloat16 else 8
+    if d % step or d > 256:
+        raise ValueError(f"head_dim {d} in {str(q.dtype)[6:]} must be a "
+                         f"multiple of {step} and at most 256")
 
 
 def check_index(t: torch.Tensor, shape: tuple, name: str) -> None:

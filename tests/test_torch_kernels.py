@@ -319,12 +319,16 @@ def test_cpu_flash_wrapper_takes_plain_version_without_launching():
 
 @pytest.mark.parametrize("d,dtype,accepted", [
     (48, "bfloat16", True), (40, "bfloat16", False),
-    (320, "bfloat16", False), (32, "float32", True)],
-    ids=["bf16_d48", "bf16_d40", "bf16_d320", "f32_d32"])
+    (320, "bfloat16", False), (32, "float32", True), (8, "float32", True),
+    (256, "float32", True), (36, "float32", False),
+    (264, "float32", False)],
+    ids=["bf16_d48", "bf16_d40", "bf16_d320", "f32_d32", "f32_d8",
+         "f32_d256", "f32_d36", "f32_d264"])
 def test_tile_head_dim_rule(d, dtype, accepted):
-    """The bf16 prefill bodies run on the tensor cores in steps of 16
-    along D, at most 256 wide; the check runs before a launch and is
-    pure Python, so it is held here on CPU tensors."""
+    """Both prefill bodies run on the tensor cores, at most 256 wide:
+    bf16 in steps of 16 along D, float32 (3xTF32) in steps of 8; the
+    check runs before a launch and is pure Python, so it is held here on
+    CPU tensors."""
     from repro_torch.kernels import common
     q = torch.zeros(1, 4, 4, d, dtype=TORCH_DTYPES[dtype])
     k = torch.zeros(1, 4, 2, d, dtype=TORCH_DTYPES[dtype])
@@ -332,5 +336,190 @@ def test_tile_head_dim_rule(d, dtype, accepted):
     if accepted:
         common.check_tile_head_dim(q)
     else:
-        with pytest.raises(ValueError, match="multiple of 16"):
+        step = 16 if dtype == "bfloat16" else 8
+        with pytest.raises(ValueError, match=f"multiple of {step} and at "
+                           "most 256"):
             common.check_tile_head_dim(q)
+
+
+# ---------------------------------------------------------------- 3xTF32
+# The float32 tile (csrc/attn_tile_f32.cuh) takes each float32 product
+# as three TF32 products on the tensor cores.  The card cannot be asked
+# here, so its arithmetic is emulated on CPU tensors and held to the JAX
+# reference at the float32 prefill tolerance: TF32 rounding as cvt.rna
+# does it, each product split as the kernel splits it (P too), the three
+# products in the kernel's order, float32 sums, S in partials of 32
+# columns of D, PV a fresh accumulator a key tile, the online softmax as
+# the kernel runs it over its key tiles, split between two warps and
+# merged.  One TF32 product (the small terms lost) must miss the same
+# bar.
+
+F32_NEG = float(np.float32(-0.7) * np.finfo(np.float32).max)
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits), to nearest, ties away."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x):
+    big = _tf32(x)
+    return big, _tf32(x - big)
+
+
+def _mma(acc, a, b, terms):
+    """acc + a @ b for one k-step of 8, as ``mma_3xtf32`` (terms 3) or one
+    TF32 product (terms 1): products of TF32 values are exact in
+    float32."""
+    (ab, as_), (bb, bs) = _split(a), _split(b)
+    if terms == 3:
+        acc = acc + as_ @ bb
+        acc = acc + ab @ bs
+    return acc + ab @ bb
+
+
+def _fma(a, b, c):
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _tile_emulation(q, k, v, visible, scale, terms=3):
+    """The float32 tile's arithmetic: q (..., R, D), k and v (..., K, D),
+    visible (..., R, K) -> (..., R, D); D padded to the tile's DP, key
+    tiles of its NK, each split between two warps (keys 0..NK/2-1 and
+    NK/2..NK-1 of every tile), each with its own online softmax, merged
+    at the end."""
+    import torch.nn.functional as F
+    d = q.shape[-1]
+    dp = next(p for p in (32, 64, 128, 256) if d <= p)
+    nk = 64 if dp <= 64 else 32
+    nw = nk // 2                                   # keys a warp a tile
+    parts = 2                                      # partial sums of S
+    kpad = -k.shape[-2] % nk
+    q = F.pad(q, (0, dp - d))
+    k = F.pad(k, (0, dp - d, 0, kpad))
+    v = F.pad(v, (0, dp - d, 0, kpad))
+    visible = F.pad(visible, (0, kpad))
+    sl2 = torch.tensor(np.float32(np.float32(scale)
+                                  * np.float32(1.4426950408889634)))
+    neg = torch.tensor(F32_NEG)
+    warps = []
+    for h in range(2):
+        o = torch.zeros(q.shape)
+        m = torch.full(q.shape[:-1], F32_NEG)
+        l = torch.zeros(q.shape[:-1])
+        for k0 in range(h * nw, k.shape[-2], nk):
+            kt, vt = k[..., k0:k0 + nw, :], v[..., k0:k0 + nw, :]
+            vis = visible[..., k0:k0 + nw]
+            sc = torch.zeros(vis.shape)
+            for c in range(0, dp, 32):
+                part = [torch.zeros(vis.shape) for _ in range(parts)]
+                for i, kk in enumerate(range(c, c + 32, 8)):
+                    part[i % parts] = _mma(
+                        part[i % parts], q[..., kk:kk + 8],
+                        kt[..., kk:kk + 8].transpose(-1, -2), terms)
+                for x in part:
+                    sc = sc + x
+            x = torch.where(vis, sc, neg)
+            mx = torch.maximum(m, x.amax(-1))
+            alpha = torch.exp2((m - mx) * sl2)
+            p = torch.where(vis, torch.exp2(_fma(x, sl2,
+                                                 (-mx * sl2)[..., None])),
+                            torch.tensor(0.0))
+            l = l * alpha + p.sum(-1)
+            m = mx
+            pv = torch.zeros(o.shape)
+            for kk in range(0, nw, 8):
+                pv = _mma(pv, p[..., kk:kk + 8], vt[..., kk:kk + 8, :],
+                          terms)
+            o = _fma(o, alpha[..., None], pv)
+        warps.append((o, m, l))
+    (o, m, l), (ob, mb, lb) = warps
+    mx = torch.maximum(m, mb)
+    a, b = torch.exp2((m - mx) * sl2), torch.exp2((mb - mx) * sl2)
+    l = l * a + lb * b
+    o = _fma(o, a[..., None], ob * b[..., None])
+    return (o * (1 / l.clamp(min=1e-30))[..., None])[..., :d]
+
+
+def _emulate_paged_prefill(q, kp, vp, bt, ctx, chunk, terms=3):
+    """paged_prefill through the emulated tile: the G heads of a KV group
+    folded into its rows, keys gathered through the block tables."""
+    b, s, h, d = q.shape
+    _, page, hkv, _ = kp.shape
+    g, n = h // hkv, bt.shape[1] * page
+    k = kp[bt.long()].reshape(b, n, hkv, d).transpose(1, 2)
+    v = vp[bt.long()].reshape(b, n, hkv, d).transpose(1, 2)
+    rows = q.reshape(b, s, hkv, g, d).permute(0, 2, 3, 1, 4).reshape(
+        b, hkv, g * s, d)
+    j = torch.arange(s).repeat(g)                       # row -> chunk row
+    kpos = torch.arange(n)
+    vis = ((kpos[None, None] <= (ctx[:, None] + j[None])[..., None])
+           & (kpos[None, None] < (ctx + chunk)[:, None, None])
+           & (j[None, :, None] < chunk[:, None, None]))[:, None]
+    out = _tile_emulation(rows, k, v, vis, d ** -0.5, terms)
+    return out.reshape(b, hkv, g, s, d).permute(0, 3, 1, 2, 4).reshape(
+        b, s, h, d)
+
+
+def _emulate_flash(q, k, v, lengths, window=0, q_offset=0, terms=3):
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    rows = q.reshape(b, sq, hkv, g, d).permute(0, 2, 3, 1, 4).reshape(
+        b, hkv, g * sq, d)
+    qpos = torch.arange(sq).repeat(g) + q_offset
+    kpos = torch.arange(sk)
+    vis = kpos[None] <= qpos[:, None]
+    if window:
+        vis &= kpos[None] > qpos[:, None] - window
+    vis = (vis[None] & (kpos[None, None] < lengths[:, None, None]))[:, None]
+    out = _tile_emulation(rows, k.transpose(1, 2), v.transpose(1, 2), vis,
+                          d ** -0.5, terms)
+    return out.reshape(b, hkv, g, sq, d).permute(0, 3, 1, 2, 4).reshape(
+        b, sq, h, d)
+
+
+@pytest.mark.parametrize("b,h,hkv,d,page", PREFILL_CASES)
+def test_3xtf32_tile_paged_prefill_matches_jax(b, h, hkv, d, page):
+    rng = np.random.default_rng(7)
+    args = _prefill_inputs(rng, b, h, hkv, d, page)
+    out = _emulate_paged_prefill(*(t for _, t in args))
+    _close(out, jops.paged_prefill(*(j for j, _ in args)), 3e-5)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hkv,d,win,qoff",
+                         [c[:8] for c in FLASH_CASES if c[8] == "float32"]
+                         + [(1, 256, 256, 4, 2, 256, 0, 0),
+                            (1, 200, 200, 4, 2, 256, 64, 0)])
+def test_3xtf32_tile_flash_prefill_matches_jax(b, sq, sk, h, hkv, d, win,
+                                               qoff):
+    """The JAX test's float32 cases, then gemma3-4b's D 256 with and
+    without a window (against the JAX oracle; the Pallas kernel in
+    interpret mode is slow at that width)."""
+    rng = np.random.default_rng(13)
+    args = _flash_inputs(rng, b, sq, sk, h, hkv, d, "float32")
+    out = _emulate_flash(*(t for _, t in args), window=win, q_offset=qoff)
+    jq = [j for j, _ in args]
+    want = (jref.flash_prefill_ref(*jq, window=win, q_offset=qoff)
+            if d == 256 else jflash(*jq, window=win, q_offset=qoff,
+                                    block_q=64, block_k=64))
+    _close(out, want, 3e-5)
+
+
+@pytest.mark.parametrize("kernel", ["paged_prefill", "flash_prefill"])
+def test_1xtf32_tile_misses_the_float32_bar(kernel):
+    """One TF32 product a float32 product (the small terms dropped) is
+    ~1e-3 off: the 3xTF32 tests above would catch a lost small term."""
+    rng = np.random.default_rng(17)
+    if kernel == "paged_prefill":
+        args = _prefill_inputs(rng, 2, 8, 2, 64, 16)
+        got = _emulate_paged_prefill(*(t for _, t in args), terms=1)
+        want = jops.paged_prefill(*(j for j, _ in args))
+    else:
+        args = _flash_inputs(rng, 1, 256, 256, 4, 2, 256, "float32")
+        got = _emulate_flash(*(t for _, t in args), terms=1)
+        want = jref.flash_prefill_ref(*(j for j, _ in args))
+    err = np.abs(got.numpy() - np.asarray(want)).max()
+    assert err > 1e-4, err
+    with pytest.raises(AssertionError):
+        _close(got, want, 3e-5)
