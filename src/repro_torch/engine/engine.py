@@ -42,6 +42,13 @@ queued.  Any other step resolves first.  Tokens are the sync loop's;
 (``device_wait_s``) and the share of ``step()``'s wall that was not
 (``host_overhead_frac``).
 
+Every path of ``step()`` records the same spans in the engine's step
+trace (``repro_torch.engine.trace``, shared with the runner):
+``engine.step`` around the call, ``engine.schedule`` around the call
+into the scheduler, the runner's ``runner.inputs``, ``runner.forward``,
+``runner.sample`` and ``runner.readback``, and ``engine.update`` around
+the scheduler's bookkeeping once tokens arrive.
+
 The engine runs on the card unless the caller names another device
 (``device="cpu"`` for tests); on a CUDA device only ``impl="kernel"``
 is accepted, so the plain attention never sits on the card's serving
@@ -69,6 +76,7 @@ from repro_torch.engine.runner import ModelRunner
 from repro_torch.engine.scheduler import (EngineMetrics, PENDING_TOKEN,
                                           ScheduleOutput, Scheduler,
                                           SchedulerConfig)
+from repro_torch.engine.trace import SAMPLE, SCHEDULE, UPDATE, StepTrace
 from repro_torch.models.config import ModelConfig
 
 
@@ -187,8 +195,9 @@ class InferenceEngine:
         self.engine_id = engine_id
         self.clock = clock
         self.kv_pool = kv_pool_client
-        self.runner = ModelRunner(cfg, ecfg, self.device, params=params,
-                                  seed=seed)
+        self.trace = StepTrace()
+        self.runner = ModelRunner(cfg, ecfg, self.device, self.trace,
+                                  params=params, seed=seed)
         # host-DRAM KV tier: device evictions cascade into it and
         # preemption swaps to it instead of recomputing
         self.host_pool = None
@@ -227,9 +236,6 @@ class InferenceEngine:
         # positions)}, resolved when the next step is dispatched (or at
         # drain)
         self._pending: Optional[dict] = None
-        # wall time spent inside step(): with runner.device_wait_s it
-        # gives host_overhead_frac, the gap the async loop hides
-        self._step_wall_s = 0.0
         # predictive promotion: a daemon thread reads SSD pages off the
         # critical path; landed payloads queue here and are installed
         # into the host pool at step boundaries by the engine thread
@@ -414,15 +420,27 @@ class InferenceEngine:
         drafts, one per *completed* prefill).  With ``async_loop`` the
         count for an overlapped decode step is the number DISPATCHED
         (read back when the next step is issued)."""
-        t0 = time.perf_counter()
+        t = self.trace.begin_step()
         try:
             self._flush_deferred_unloads()
             self._land_promotions()
             if self.ecfg.async_loop:
                 return self._step_async()
-            return self._exec(self.sched.schedule(self.clock()))
+            return self._exec(self._schedule())
         finally:
-            self._step_wall_s += time.perf_counter() - t0
+            self.trace.end_step(t)
+
+    @property
+    def step_wall_s(self) -> float:
+        """Wall seconds spent inside ``step()``: the summed
+        ``engine.step`` spans."""
+        return self.trace.step_ns / 1e9
+
+    def _schedule(self) -> ScheduleOutput:
+        t = self.trace.begin(SCHEDULE)
+        out = self.sched.schedule(self.clock())
+        self.trace.end(t)
+        return out
 
     def _exec(self, out: ScheduleOutput) -> int:
         """Execute one declarative schedule synchronously."""
@@ -470,8 +488,10 @@ class InferenceEngine:
                     produced += 1
         emitted = self.runner.verify_drafts(spec_logits, out.decode,
                                             out.spec)
+        t = self.trace.begin(UPDATE)
         produced += self.sched.on_spec_batch(out.decode, out.spec,
                                              emitted, self.clock())
+        self.trace.end(t)
         return produced
 
     # ------------------------------------------------ async overlapped loop
@@ -484,14 +504,14 @@ class InferenceEngine:
         (prefill chunks, speculative drafts, idle) is a sync point:
         resolve first, re-plan on the real history, run the normal
         path."""
-        out = self.sched.schedule(self.clock())
+        out = self._schedule()
         if self._overlappable(out):
             return self._dispatch_async(out.decode)
         if self._pending is not None:
             self.drain_async()
             # resolution patched real tokens (and may have finished or
             # truncated requests): the plan must be rebuilt on it
-            out = self.sched.schedule(self.clock())
+            out = self._schedule()
             if self._overlappable(out):
                 return self._dispatch_async(out.decode)
         return self._exec(out)
@@ -503,7 +523,9 @@ class InferenceEngine:
     def _dispatch_async(self, reqs: List[Request]) -> int:
         reqs = list(reqs)
         tok_dev = self.runner.run_decode_async(reqs, self._pending)
+        t = self.trace.begin(UPDATE)
         idxs = self.sched.on_decode_provisional(reqs, self.clock())
+        self.trace.end(t)
         prev, self._pending = self._pending, dict(
             reqs=reqs, tok_dev=tok_dev, idxs=idxs)
         if prev is not None:
@@ -517,8 +539,13 @@ class InferenceEngine:
         dispatched past it (at most the one in-flight step) is
         truncated, so output streams match the sync loop token for
         token.  A placeholder that vanished meanwhile (preempt reset,
-        stop truncation) is skipped by the guard."""
+        stop truncation) is skipped by the guard.  The readback is the
+        step's sampling call (the sampling itself ran on the device)."""
+        tr = self.trace
+        t = tr.begin(SAMPLE)
         toks = self.runner.readback(rec["tok_dev"])
+        tr.end(t)
+        t = tr.begin(UPDATE)
         now = self.clock()
         for i, (r, idx) in enumerate(zip(rec["reqs"], rec["idxs"])):
             if (idx >= len(r.output_tokens)
@@ -540,6 +567,7 @@ class InferenceEngine:
                     r._pending_toks = 0
                 if r.state is RequestState.RUNNING:
                     self.sched.maybe_finish(r, now)
+        tr.end(t)
 
     def drain_async(self) -> None:
         """Resolve the in-flight async dispatch (no-op when none)."""
@@ -551,7 +579,10 @@ class InferenceEngine:
         """Advance one prefill chunk; True when it produced a token
         (prefill completed and its first token was sampled)."""
         req = work.req
+        tr = self.trace
+        t = tr.begin(UPDATE)
         if not self.sched.note_prefill_progress(req, work.chunk_len):
+            tr.end(t)
             return False
         now = self.clock()
         self.sched.register_prompt_pages(req, now)
@@ -567,12 +598,16 @@ class InferenceEngine:
                                  req.lora_adapter or ""),
                     now)
             self.sched.deliver_handoff(req)
+            tr.end(t)
             return False
+        tr.end(t)
         tok = self.runner.sample(
             logits, [req],
             positions=[req.prompt_len + len(req.output_tokens)])[0]
+        t = tr.begin(UPDATE)
         self.sched.finish_prefill(req, int(tok), now)
         self.sched.note_tokens(now, req.prompt_len + 1)
+        tr.end(t)
         return True
 
     def _postprocess_decode(self, reqs, logits) -> None:
@@ -582,7 +617,9 @@ class InferenceEngine:
         new = self.runner.sample(
             logits, reqs,
             positions=[r.prompt_len + len(r.output_tokens) for r in reqs])
+        t = self.trace.begin(UPDATE)
         self.sched.on_decode_batch(reqs, new, self.clock())
+        self.trace.end(t)
 
     def run_until_idle(self, max_steps: int = 100_000) -> None:
         for _ in range(max_steps):
@@ -605,10 +642,10 @@ class InferenceEngine:
         m.lora_cold_load_s = self.runner.adapter_load_s
         m.lora_evictions = self.runner.adapter_evictions
         m.lora_host_hits = self.runner.adapter_host_hits
-        if self._step_wall_s > 0:
+        wall = self.step_wall_s
+        if wall > 0:
             m.host_overhead_frac = min(max(
-                1.0 - self.runner.device_wait_s / self._step_wall_s,
-                0.0), 1.0)
+                1.0 - m.device_wait_s / wall, 0.0), 1.0)
         return m
 
     def match_prefix_len(self, tokens) -> int:

@@ -20,8 +20,16 @@ host on the device's current stream without waiting for anything: its
 inputs travel from a pinned staging buffer (``non_blocking``), tokens
 still in flight come from the previous dispatch's device tensor, and the
 copy back lands in a pinned tensor behind an event.  ``readback`` is the
-one wait, and charges it to ``device_wait_s``, as the sync paths'
-readbacks are charged.
+one wait, as it ends every sync step.
+
+Every step records its spans and counters in the engine's step trace
+(``repro_torch.engine.trace``), shared with the runner: the input
+preparation (``runner.inputs``), the enqueue of the forward pass
+(``runner.forward``), each sampling call (``runner.sample``) and each
+wait for the device (``runner.readback``, whose summed seconds are
+``device_wait_s``); the rows each step really ran and padded to, and
+the calls that waited for the device (``host_syncs``: readbacks and the
+blocking copies of ``_dev``).
 
 It also owns the page *payload* side of the KV tiers: a page leaves the
 device as numpy ``(L, page, Hkv, D)`` K and V arrays, the JAX package's
@@ -43,6 +51,8 @@ from repro_torch.engine.sampling import (fold_in, prng_key, row_keys,
                                          sample, split)
 from repro_torch.engine.scheduler import PrefillWork, ScheduleOutput
 from repro_torch.engine.speculative import accept_length
+from repro_torch.engine.trace import (FORWARD, INPUTS, READBACK, SAMPLE,
+                                      StepTrace)
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.payload import from_payload, to_payload
@@ -61,15 +71,13 @@ class InFlight(NamedTuple):
 
 
 class ModelRunner:
-    """Turns declarative schedules into forward passes on ``device``."""
-
-    # process-wide device-wait accumulator (the per-runner one summed
-    # over every runner of the process)
-    total_device_wait_s = 0.0
+    """Turns declarative schedules into forward passes on ``device``,
+    recording into the engine's ``trace``."""
 
     def __init__(self, cfg: ModelConfig, ecfg, device: torch.device,
-                 params=None, seed: int = 0):
+                 trace: StepTrace, params=None, seed: int = 0):
         self.cfg, self.ecfg, self.device = cfg, ecfg, device
+        self.trace = trace
         if ecfg.dtype not in DTYPES:
             raise ValueError(f"dtype must be one of {sorted(DTYPES)}, got "
                              f"{ecfg.dtype!r}")
@@ -120,10 +128,6 @@ class ModelRunner:
         self._spec_toks = np.zeros((b, sd), np.int32)
         self._spec_ctx = np.zeros(b, np.int32)
         self._spec_len = np.zeros(b, np.int32)
-        # seconds spent blocked on the device (readbacks and the staging
-        # buffer's guard): with the engine's step wall it gives
-        # host_overhead_frac, the share of a step the async loop hides
-        self.device_wait_s = 0.0
         # the async decode step's inputs, packed into one int32 buffer
         # (pinned on a card, so its copy is queued, not waited on) and
         # the event recorded after its last copy: the buffer is refilled
@@ -133,36 +137,44 @@ class ModelRunner:
             pin_memory=device.type == "cuda")
         self._inflight: Optional[torch.cuda.Event] = None
 
-    def _charge(self, dt: float) -> None:
-        self.device_wait_s += dt
-        ModelRunner.total_device_wait_s += dt
+    @property
+    def device_wait_s(self) -> float:
+        """Seconds spent blocked on the device: the summed
+        ``runner.readback`` spans (readbacks and the staging buffer's
+        guard).  With the engine's step wall it gives
+        host_overhead_frac, the share of a step the async loop hides."""
+        return self.trace.wait_ns / 1e9
 
     def _sync_inflight(self) -> None:
         """Wait until the staging buffer's last copy to the device has
         run, so that refilling it cannot change what that copy reads."""
         if self._inflight is not None:
-            t0 = time.perf_counter()
+            tr = self.trace
+            t = tr.begin(READBACK)
             self._inflight.synchronize()
-            self._charge(time.perf_counter() - t0)
+            tr.end(t)
             self._inflight = None
 
     def readback(self, x: Union[torch.Tensor, InFlight]) -> np.ndarray:
-        """A device tensor (or an async dispatch's tokens) on the host,
-        the wait charged to ``device_wait_s``: the async loop's one sync
-        point, and the end of every sync step."""
-        t0 = time.perf_counter()
+        """A device tensor (or an async dispatch's tokens) on the host, in
+        a ``runner.readback`` span: the async loop's one sync point, and
+        the end of every sync step."""
+        tr = self.trace
+        t = tr.begin(READBACK)
         if isinstance(x, InFlight):
             if x.done is not None:
                 x.done.synchronize()
             out = x.host.numpy().copy()
         else:
             out = x.cpu().numpy()
-        self._charge(time.perf_counter() - t0)
+        tr.end(t)
         return out
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         """Copy a host buffer to the device (a copy on the CPU too: the
-        buffer is refilled next step)."""
+        buffer is refilled next step).  From pageable memory the copy
+        returns once the device's stream has run it: a host sync."""
+        self.trace.host_syncs += 1
         return torch.from_numpy(a).to(self.device, copy=True)
 
     # ------------------------------------------------------------- LoRA
@@ -280,6 +292,7 @@ class ModelRunner:
         split of the runner's key stream keys the batch.  A greedy
         batch needs no per-position keys, and gets none (their host cost
         would be paid every step)."""
+        t = self.trace.begin(SAMPLE)
         b = logits.shape[0]
         temps = np.zeros(b, np.float32)
         tops = np.ones(b, np.float32)
@@ -297,8 +310,10 @@ class ModelRunner:
                 seeds[i] = r.sampling.seed
                 pos[i] = positions[i]
             keys = row_keys(seeds, pos)
-        return self.readback(sample(logits, sub, temps, top_k=0,
-                                    top_p=tops, keys=keys))
+        out = self.readback(sample(logits, sub, temps, top_k=0, top_p=tops,
+                                   keys=keys))
+        self.trace.end(t)
+        return out
 
     # ------------------------------------------------------- input prep
     def _pages_for(self, n_tokens: int) -> int:
@@ -331,6 +346,8 @@ class ModelRunner:
             bts[i, :n] = r.page_ids[:n]
             active[i] = True
             aids[i] = self._aid(r)
+        self.trace.rows_real += len(reqs)
+        self.trace.rows_padded += len(toks)
         return (self._dev(toks), self._dev(pos),
                 self._dev(np.ascontiguousarray(bts)), self._dev(active),
                 self._dev(aids))
@@ -360,6 +377,8 @@ class ModelRunner:
             n = min(len(p.page_ids), nb_pre)
             pre_bts[i, :n] = p.page_ids[:n]
             pre_aids[i] = self._aid(p)
+        self.trace.rows_real += int(pre_chunk.sum())
+        self.trace.rows_padded += pre_toks.size
         return (self._dev(pre_toks), self._dev(pre_ctx),
                 self._dev(pre_chunk),
                 self._dev(np.ascontiguousarray(pre_bts)),
@@ -369,23 +388,33 @@ class ModelRunner:
     def run_mixed(self, out: ScheduleOutput
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One fused decode+prefill pass; returns (dec_logits, pre_logits)."""
+        tr = self.trace
+        t = tr.begin(INPUTS)
         pre_toks, pre_ctx, pre_chunk, pre_bts, pre_aids = \
             self._prefill_inputs(out.prefills, out.pad_len)
         toks, pos, bts, active, aids = self._decode_inputs(out.decode)
+        tr.end(t)
+        t = tr.begin(FORWARD)
         dec_logits, pre_logits, self.pool = PM.mixed_step(
             self.params, self.pool, toks, pos, bts, active, pre_toks,
             pre_bts, pre_ctx, pre_chunk,
             self._bank(self._dec_aids, self._pre_aids), aids, pre_aids,
             cfg=self.cfg,
             page_size=self.ecfg.page_size, impl=self.ecfg.impl)
+        tr.end(t)
         return dec_logits, pre_logits
 
     def run_decode(self, reqs: List[Request]) -> torch.Tensor:
+        tr = self.trace
+        t = tr.begin(INPUTS)
         toks, pos, bts, active, aids = self._decode_inputs(reqs)
+        tr.end(t)
+        t = tr.begin(FORWARD)
         logits, self.pool = PM.decode_batch(
             self.params, self.pool, toks, pos, bts, active,
             self._bank(self._dec_aids), aids, cfg=self.cfg,
             page_size=self.ecfg.page_size, impl=self.ecfg.impl)
+        tr.end(t)
         return logits
 
     # -------------------------------------------------- speculative step
@@ -410,6 +439,8 @@ class ModelRunner:
             n = min(len(r.page_ids), nb)
             bts[i, :n] = r.page_ids[:n]
             aids[i] = self._aid(r)
+        self.trace.rows_real += int(slen.sum())
+        self.trace.rows_padded += toks.size
         return (self._dev(toks), self._dev(ctx), self._dev(slen),
                 self._dev(np.ascontiguousarray(bts)), self._dev(aids))
 
@@ -421,21 +452,30 @@ class ModelRunner:
         (B, SD, V), prefill logits (K, V) or None)."""
         ecfg = self.ecfg
         kw = dict(cfg=self.cfg, page_size=ecfg.page_size, impl=ecfg.impl)
+        tr = self.trace
         if any(w.chunk_len > 0 for w in out.prefills):
+            t = tr.begin(INPUTS)
             pre_toks, pre_ctx, pre_chunk, pre_bts, pre_aids = \
                 self._prefill_inputs(out.prefills, out.pad_len)
             toks, ctx, slen, bts, aids = self._spec_inputs(out.decode,
                                                            out.spec)
+            tr.end(t)
+            t = tr.begin(FORWARD)
             spec_logits, pre_logits, self.pool = PM.spec_mixed_step(
                 self.params, self.pool, toks, ctx, slen, bts, pre_toks,
                 pre_bts, pre_ctx, pre_chunk,
                 self._bank(self._dec_aids, self._pre_aids), aids,
                 pre_aids, **kw)
+            tr.end(t)
             return spec_logits, pre_logits
+        t = tr.begin(INPUTS)
         toks, ctx, slen, bts, aids = self._spec_inputs(out.decode, out.spec)
+        tr.end(t)
+        t = tr.begin(FORWARD)
         spec_logits, self.pool = PM.spec_decode_step(
             self.params, self.pool, toks, ctx, slen, bts,
             self._bank(self._dec_aids), aids, **kw)
+        tr.end(t)
         return spec_logits, None
 
     def verify_drafts(self, spec_logits: torch.Tensor, reqs: List[Request],
@@ -445,6 +485,7 @@ class ModelRunner:
         samples.  Returns per-request emitted token lists (accepted
         prefix + the bonus/correction token): what step-by-step decoding
         would have produced."""
+        t = self.trace.begin(SAMPLE)
         b, sd, v = spec_logits.shape
         temps = np.zeros(b * sd, np.float32)
         tops = np.ones(b * sd, np.float32)
@@ -463,7 +504,8 @@ class ModelRunner:
         emitted = []
         for i, d in enumerate(spec):
             m = accept_length(d, sampled[i, :len(d) + 1])
-            emitted.append([int(t) for t in sampled[i, :m + 1]])
+            emitted.append([int(x) for x in sampled[i, :m + 1]])
+        self.trace.end(t)
         return emitted
 
     # ------------------------------------------------ async decode step
@@ -479,6 +521,8 @@ class ModelRunner:
         per-position keys and queues the copy of its tokens to the host.
         Returns the step's :class:`InFlight` tokens."""
         ecfg = self.ecfg
+        tr = self.trace
+        t = tr.begin(INPUTS)
         b = ecfg.max_batch
         nb = self._bt_width(max((self._pages_for(
             r.prompt_len + len(r.output_tokens)) for r in reqs),
@@ -509,6 +553,8 @@ class ModelRunner:
             temps[i] = r.sampling.temperature
             tops[i] = r.sampling.top_p
             seeds[i] = r.sampling.seed
+        tr.rows_real += len(reqs)
+        tr.rows_padded += b
         # one copy of the packed inputs, queued behind the device's work
         if self.device.type == "cuda":
             dev = self._stage[:n_in].to(self.device, non_blocking=True)
@@ -516,6 +562,8 @@ class ModelRunner:
             self._inflight.record()
         else:
             dev = self._stage[:n_in].clone()
+        tr.end(t)
+        t = tr.begin(FORWARD)
         d_toks, d_pos, d_active, d_aids, d_src, d_from = \
             dev[:6 * b].view(6, b)
         tok_in = d_toks
@@ -533,16 +581,20 @@ class ModelRunner:
         tok_dev = sample(logits, self._key, temps, top_k=0, top_p=tops,
                          keys=keys)
         if self.device.type != "cuda":
+            tr.end(t)
             return InFlight(tok_dev, tok_dev, None)
         host = torch.empty(b, dtype=torch.int32, pin_memory=True)
         host.copy_(tok_dev, non_blocking=True)
         done = torch.cuda.Event()
         done.record()
+        tr.end(t)
         return InFlight(tok_dev, host, done)
 
     def run_prefill(self, work: PrefillWork) -> torch.Tensor:
         """One (possibly chunked) prefill for ONE request (two-phase)."""
         ecfg = self.ecfg
+        tr = self.trace
+        t = tr.begin(INPUTS)
         req, s, c = work.req, work.pad_len, work.chunk_len
         if s == ecfg.chunk_size:
             toks = self._pre_toks[:1]
@@ -556,11 +608,18 @@ class ModelRunner:
         n = min(len(req.page_ids), nb)
         bt[0, :n] = req.page_ids[:n]
         aid = np.array([self._aid(req)], np.int32)
+        tr.rows_real += c
+        tr.rows_padded += toks.size
+        d_toks = self._dev(np.ascontiguousarray(toks))
+        d_bt = self._dev(np.ascontiguousarray(bt))
+        d_aid = self._dev(aid)
+        tr.end(t)
+        t = tr.begin(FORWARD)
         logits, self.pool = PM.prefill_step(
-            self.params, self.pool, self._dev(np.ascontiguousarray(toks)),
-            self._dev(np.ascontiguousarray(bt)), work.start, c,
-            self._bank(aid), self._dev(aid), cfg=self.cfg,
+            self.params, self.pool, d_toks, d_bt, work.start, c,
+            self._bank(aid), d_aid, cfg=self.cfg,
             page_size=ecfg.page_size, impl=ecfg.impl)
+        tr.end(t)
         return logits
 
     # ------------------------------------------------------- pool payloads

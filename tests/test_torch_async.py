@@ -156,4 +156,4 @@ def test_overlap_metrics_in_range(setup, kw):
     m = eng.metrics()
     assert m.device_wait_s >= 0.0
     assert 0.0 <= m.host_overhead_frac <= 1.0
-    assert eng.runner.device_wait_s <= eng._step_wall_s
+    assert eng.runner.device_wait_s <= eng.step_wall_s
