@@ -27,6 +27,16 @@ Phases, each printing one JSON line:
             page boundaries; the float32 twins of the bf16-only prefill
             cases (G 3, 5 and 16; D 8, 40, 48, 128, 192 and 256; D 256
             with Sq no multiple of 64), which the 3xTF32 tile takes;
+            the paged step's fused elementwise kernels (``add_rms_norm``
+            with and without a residual, ``rope_write_kv`` with and
+            without LoRA deltas, ``gated_act`` silu and gelu) at the
+            qwen3-0.6b serve's mixed step (T 136) and deepseek-coder-
+            6.7b's (T 2,112, d 4,096, H = Hkv 32, D 128, F 11,008), bf16
+            and float32, against ``ref.*_ref``: RoPE, the page writes
+            and the residual sum bit for bit, no other page slot
+            written, norms and activations within one bf16 ulp or 1e-6
+            relative; each then timed against its plain chain and the
+            bytes it must move (``timing`` lines);
    sampling the port's threefry PRNG on the card bit for bit against
             values recorded from jax 0.9.0 (``row_keys``, ``split``,
             ``uniform``, ``gumbel``), the XLA-rounded logs of every
@@ -40,8 +50,11 @@ Phases, each printing one JSON line:
             and pools must agree;
 5. serve    16 greedy requests through ``InferenceEngine`` at full width
             in bfloat16, twice on fresh engines: every request finishes,
-            no page leaks, the same tokens both times, and each kernel
-            launched exactly 28 times per step that needs it;
+            no page leaks, the same tokens both times, and each
+            attention kernel launched exactly 28 times per step that
+            needs it; the fused elementwise kernels' counts beside
+            them, exact too: per forward ``add_rms_norm`` 2n + 1 times,
+            ``rope_write_kv`` and (dense layers) ``gated_act`` n times;
 6. lora     a float32 ``mixed_step`` with a bank of 4 adapters, kernels
             against plain versions and LoRA on against off; then 16
             greedy bf16 requests over the base and 10 adapters through a
@@ -295,6 +308,18 @@ KERNEL_INFO = {
         source="src/repro_torch/kernels/csrc/flash_prefill.cu",
         replaces="src/repro/kernels/flash_prefill.py:125"),
 }
+# the paged step's fused elementwise kernels, which replace no TPU kernel
+# (XLA fuses these chains there)
+FUSED_SOURCE = "src/repro_torch/kernels/csrc/fused_elementwise.cu"
+KERNEL_INFO.update({name: dict(source=FUSED_SOURCE, replaces=None)
+                    for name in ("add_rms_norm", "rope_write_kv",
+                                 "gated_act")})
+# their shapes (d, H, Hkv, D, F, mixed-step rows T): qwen3-0.6b's serve
+# (8 decode rows + 2 chunks of 64) and deepseek-coder-6.7b's benchmark
+# cell; 65% of the rows valid, their K/V slots in distinct pages
+FUSED_SHAPES = {"qwen3-0.6b": (1024, 16, 8, 64, 3072, 136),
+                "deepseek-coder-6.7b": (4096, 32, 32, 128, 11008, 2112)}
+FUSED_PAGE, FUSED_VALID, FUSED_EPS, FUSED_THETA = 16, 0.65, 1e-6, 100000.0
 # the serving configuration (ISSUE-style full-width run)
 SERVE_ECFG = dict(dtype="bfloat16", page_size=16, num_pages=1024,
                   max_batch=8, max_pages_per_seq=64, chunk_size=64,
@@ -843,6 +868,177 @@ def check_kernels(torch, ops_mod):
     return results
 
 
+# ------------------------------------------------------------ fused
+def ulp_gap(torch, got, want):
+    """The largest gap of ``got`` from ``want`` and whether it is within
+    tolerance: bf16 one unit in the last place of the larger of the two,
+    float32 1e-6 relative."""
+    g, w = got.float(), want.float()
+    gap = (g - w).abs()
+    if got.dtype == torch.float32:
+        return gap.max().item(), bool((gap <= 1e-6 * w.abs()).all())
+    big = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    return gap.max().item(), bool((gap <= ulp).all())
+
+
+def fused_cases(torch, gen, shape, dtype):
+    """Inputs of the three fused kernels at ``FUSED_SHAPES[shape]``:
+    (x, delta, scale), (q, k, v, sin, cos, k_pages, v_pages, rows, pidx,
+    slot, dq, dv) with a scratch page last that no valid row writes, and
+    (gate, up)."""
+    from repro_torch.models import layers
+    d, h, hkv, hd, f, t = FUSED_SHAPES[shape]
+
+    def rand(*size, scale=1.0):
+        return (torch.randn(size, generator=gen, device="cuda")
+                * scale).to(dtype)
+    norm = (rand(1, t, d), rand(1, t, d, scale=0.5), rand(d, scale=0.1))
+    n_pages = -(-t // FUSED_PAGE) + 4
+    pos = torch.randint(0, 16384, (1, t), generator=gen, device="cuda")
+    sin, cos = layers.rope_freqs(pos, hd, FUSED_THETA)
+    valid = torch.rand(t, generator=gen, device="cuda") < FUSED_VALID
+    rows = torch.nonzero(valid).squeeze(1)
+    dest = torch.randperm(n_pages * FUSED_PAGE, generator=gen,
+                          device="cuda")[:rows.numel()]
+    rope = (rand(1, t, h, hd), rand(1, t, hkv, hd), rand(1, t, hkv, hd),
+            sin, cos, rand(n_pages + 1, FUSED_PAGE, hkv, hd),
+            rand(n_pages + 1, FUSED_PAGE, hkv, hd), rows,
+            dest // FUSED_PAGE, dest % FUSED_PAGE,
+            rand(1, t, h, hd, scale=0.1), rand(1, t, hkv, hd, scale=0.1))
+    act = (rand(1, t, f, scale=2.0), rand(1, t, f))
+    return norm, rope, act
+
+
+def check_fused(torch):
+    """The fused elementwise kernels against ``ref.*_ref`` on the same
+    card tensors, at ``FUSED_SHAPES`` in bf16 and float32 (see the
+    module's docstring), then timed at each shape: ``timing`` lines with
+    the kernel's ms (CUDA events and its device time alone), the plain
+    chain's, and the bound of the bytes it must move (each input read
+    once, each output written once; the operations are a few a byte).
+    Returns the kernel_check results."""
+    from repro_torch.kernels import fused_elementwise as fe
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(15)
+    results = []
+
+    def result(kernel, case, dtype, err, tol, ok):
+        results.append(dict(kernel=kernel, case=case, dtype=dtype,
+                            max_abs_err=err, tol=tol, ok=bool(ok)))
+        errs.setdefault(kernel, err)        # the timed case's, first
+
+    for shape, (d, h, hkv, hd, f, t) in FUSED_SHAPES.items():
+        for dt in (torch.bfloat16, torch.float32):
+            name, esize = str(dt)[6:], torch.tensor([], dtype=dt) \
+                .element_size()
+            tol = "1 bf16 ulp" if dt == torch.bfloat16 else "1e-6 relative"
+            (x, delta, scale), rope, (gate, up) = fused_cases(
+                torch, gen, shape, dt)
+            label, errs = f"{shape} T{t}", {}
+
+            # residual add + RMSNorm, with and without the residual
+            for dl in (delta, None):
+                before = fe.launches["add_rms_norm"]
+                got_x, got_h = fe.add_rms_norm(x, dl, scale, FUSED_EPS)
+                want_x, want_h = ref.add_rms_norm_ref(x, dl, scale,
+                                                      FUSED_EPS)
+                torch.cuda.synchronize()
+                err, ok = ulp_gap(torch, got_h, want_h)
+                result("add_rms_norm", f"{label} d{d} "
+                       f"{'x + delta' if dl is not None else 'no delta'}",
+                       name, err, f"x bit for bit, h {tol}",
+                       ok and torch.equal(got_x, want_x)
+                       and (dl is not None or got_x is x)
+                       and fe.launches["add_rms_norm"] == before + 1)
+
+            # RoPE + K/V page write, without and with the LoRA deltas
+            q, k, v, sin, cos, kp0, vp0, rows, pidx, slot, dq, dv = rope
+            written = torch.zeros(kp0.shape[:2], dtype=torch.bool,
+                                  device="cuda")
+            written[pidx, slot] = True
+            for lora in (False, True):
+                kp, vp, q_in = kp0.clone(), vp0.clone(), q.clone()
+                before = fe.launches["rope_write_kv"]
+                got = fe.rope_write_kv(q_in, k, v, sin, cos, kp, vp, rows,
+                                       pidx, slot, dq=dq if lora else None,
+                                       dv=dv if lora else None)
+                # the card's LoRA path: q + dq and v + dv into the kernel
+                want_kp, want_vp = kp0.clone(), vp0.clone()
+                want = ref.rope_write_kv_ref(
+                    q + dq if lora else q.clone(), k, v + dv if lora else v,
+                    sin, cos, want_kp, want_vp, rows, pidx, slot)
+                torch.cuda.synchronize()
+                ok = (torch.equal(got, want) and torch.equal(kp, want_kp)
+                      and torch.equal(vp, want_vp)
+                      and got.data_ptr() == q_in.data_ptr()
+                      and not bool(written[-1].any())
+                      and torch.equal(kp[~written], kp0[~written])
+                      and torch.equal(vp[~written], vp0[~written])
+                      and fe.launches["rope_write_kv"] == before + 1)
+                err = (got.float() - want.float()).abs().max().item()
+                case_tol = "q and pages bit for bit, no other slot written"
+                if lora:
+                    # the CPU's chain ropes q and dq apart and rounds each:
+                    # within rounding of q's scale (RoPE is linear)
+                    chain_kp, chain_vp = kp0.clone(), vp0.clone()
+                    chain = ref.rope_write_kv_ref(
+                        q.clone(), k, v, sin, cos, chain_kp, chain_vp,
+                        rows, pidx, slot, dq, dv)
+                    top = chain.float().abs().max().item()
+                    bar = (2.0 ** (math.floor(math.log2(top)) - 7)
+                           if dt == torch.bfloat16 else 1e-6 * top)
+                    err = (got.float() - chain.float()).abs().max().item()
+                    ok = ok and err <= bar and torch.equal(kp, chain_kp) \
+                        and torch.equal(vp, chain_vp)
+                    case_tol += (f"; against the unfused chain q within "
+                                 f"{bar:.3g}")
+                result("rope_write_kv", f"{label} H{h} Hkv{hkv} D{hd} "
+                       f"{rows.numel()} valid rows"
+                       f"{' + LoRA dq, dv' if lora else ''}", name, err,
+                       case_tol, ok)
+
+            # gated activation
+            for act in ("silu", "gelu"):
+                before = fe.launches["gated_act"]
+                got = fe.gated_act(gate, up, act)
+                want = ref.gated_act_ref(gate, up, act)
+                torch.cuda.synchronize()
+                err, ok = ulp_gap(torch, got, want)
+                result("gated_act", f"{label} F{f} {act}", name, err, tol,
+                       ok and fe.launches["gated_act"] == before + 1)
+
+            # timing at this shape and dtype
+            n = rows.numel()
+            rows_t = [
+                ("add_rms_norm", f"{label} d{d} x + delta",
+                 lambda: fe.add_rms_norm(x, delta, scale, FUSED_EPS),
+                 lambda: ref.add_rms_norm_ref(x, delta, scale, FUSED_EPS),
+                 (4 * t * d + d) * esize, 5 * t * d),
+                # both rope q in place at every call: the same bytes
+                ("rope_write_kv", f"{label} H{h} Hkv{hkv} D{hd} {n} valid",
+                 lambda: fe.rope_write_kv(q, k, v, sin, cos, kp0, vp0, rows,
+                                          pidx, slot),
+                 lambda: ref.rope_write_kv_ref(q, k, v, sin, cos, kp0, vp0,
+                                               rows, pidx, slot),
+                 2 * t * h * hd * esize + 2 * t * (hd // 2) * 4
+                 + 4 * n * hkv * hd * esize + 24 * n,
+                 3 * (t * h + n * hkv) * hd),
+                ("gated_act", f"{label} F{f} silu",
+                 lambda: fe.gated_act(gate, up, "silu"),
+                 lambda: ref.gated_act_ref(gate, up, "silu"),
+                 3 * t * f * esize, 6 * t * f)]
+            for kernel, case, fn, plain, nbytes, flops in rows_t:
+                kernel_line(
+                    kernel, fe.launches, errs[kernel], time_ms(torch, fn),
+                    time_ms(torch, plain), "none: no library call", nbytes,
+                    flops, name, case=f"{case} {dtype_label(torch, dt)}",
+                    device_ms=kernel_device_ms(torch, fn, kernel),
+                    model=shape)
+    return results
+
+
 # ------------------------------------------------------------ full width
 def step_inputs(torch, cfg, dtype):
     """Full-width weights, a random 1025-page pool and the inputs of one
@@ -945,14 +1141,16 @@ def full_width_step(torch, cfg):
 
 # ------------------------------------------------------------ serving
 def counted(torch, eng, pa, pp, drive, steps=None):
-    """Run ``drive()`` on ``eng`` with the paged kernels' counts set to 0
-    just before and read just after; returns the steps by mode (an async
-    loop's overlapped decode dispatch as ``async_decode``), the
-    launches, and the launches expected: one a layer for each step that
-    needs the kernel.  Given a list ``steps``, each executed step is
-    also timed between two synchronizes and the list gains ``(mode,
-    decode rows, their mean context, seconds)`` (a row's context: the
-    tokens it attends to).  The hooks are taken off afterwards."""
+    """Run ``drive()`` on ``eng`` with the paged attention kernels' and
+    the fused elementwise kernels' counts set to 0 just before and read
+    just after; returns the steps by mode (an async loop's overlapped
+    decode dispatch as ``async_decode``), the launches, and the launches
+    expected: one a layer for each step that needs an attention kernel,
+    and per forward the fused kernels' counts below.  Given a list
+    ``steps``, each executed step is also timed between two synchronizes
+    and the list gains ``(mode, decode rows, their mean context,
+    seconds)`` (a row's context: the tokens it attends to).  The hooks
+    are taken off afterwards."""
     modes = {"decode": 0, "prefill": 0, "mixed": 0, "idle": 0,
              "async_decode": 0}
     exec_, dispatch = eng._exec, eng._dispatch_async
@@ -974,17 +1172,28 @@ def counted(torch, eng, pa, pp, drive, steps=None):
         modes["async_decode"] += 1
         return dispatch(reqs)
 
+    from repro_torch.kernels import fused_elementwise as fe
     eng._exec, eng._dispatch_async = recording_exec, recording_dispatch
     torch.cuda.synchronize()
     pa.launches = pp.launches = 0
+    fe.launches.update(dict.fromkeys(fe.launches, 0))
     drive()
     torch.cuda.synchronize()
-    launches = {"paged_attention": pa.launches, "paged_prefill": pp.launches}
+    launches = {"paged_attention": pa.launches, "paged_prefill": pp.launches,
+                **fe.launches}
     del eng._exec, eng._dispatch_async      # back to the class's methods
     n = eng.cfg.n_layers
+    # every forward: a norm before the first layer, two a layer (after
+    # the attention, after the FFN), RoPE + K/V write a layer, and the
+    # gated activation a dense layer
+    forwards = (modes["decode"] + modes["prefill"] + modes["mixed"]
+                + modes["async_decode"])
     want = {"paged_attention": n * (modes["decode"] + modes["mixed"]
                                     + modes["async_decode"]),
-            "paged_prefill": n * (modes["prefill"] + modes["mixed"])}
+            "paged_prefill": n * (modes["prefill"] + modes["mixed"]),
+            "add_rms_norm": (2 * n + 1) * forwards,
+            "rope_write_kv": n * forwards,
+            "gated_act": 0 if eng.cfg.moe else n * forwards}
     return modes, launches, want
 
 
@@ -4499,7 +4708,7 @@ def main() -> int:
     starts = []                 # (phase, start time), in the order run
     if "kernels" in only:
         starts.append(("kernels", time.perf_counter()))
-        results = check_kernels(torch, ops)
+        results = check_kernels(torch, ops) + check_fused(torch)
         # every float32 prefill kernel runs on the tensor cores (3xTF32)
         for n in ("paged_prefill", "flash_prefill"):
             if not isinstance(sass[n], dict):

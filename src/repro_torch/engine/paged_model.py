@@ -22,16 +22,23 @@ returns a new pool, these functions loop over the layers in Python and
 write each layer's new K/V into the pool **in place**; the returned
 ``PagePool`` is the same object that was passed in.  JAX drops masked
 K/V writes (inactive decode rows, chunk padding, idle spec lanes) with
-``mode="drop"``; here only the valid rows are selected and written, so
-no write reaches any page for them, the scratch page included, and no
-two writes of a step land on one slot (``index_put`` with repeated
-indices would keep an unspecified one).
+``mode="drop"``; here only the valid rows are written, so no write
+reaches any page for them, the scratch page included, and no two writes
+of a step land on one slot.
+
+Between the GEMMs each layer runs three fused elementwise kernels
+(``kernels/fused_elementwise.py``, dispatched through ``kernels.ops``):
+a residual add with the RMSNorm after it (twice), RoPE of q and k with
+the K/V page write, and the MLP's gated activation.  The (sin, cos)
+table is made once a step.  For CPU tensors (and ``impl="ref"``) each
+is the plain composition of ``models.layers`` it replaces.
 
 High-density LoRA is applied in-batch as in the JAX package: every
 request carries an adapter id into a gathered (adapter, d, r) x
 (adapter, r, out) pair on the q/v projections, two batched products
-(``torch.bmm``) outside any kernel.  Adapter 0 is the zero (base-model)
-adapter, so base rows and N adapters share one step.
+(``torch.bmm``) outside any kernel, whose deltas join q and v before
+RoPE.  Adapter 0 is the zero (base-model) adapter, so base rows and N
+adapters share one step.
 """
 from __future__ import annotations
 
@@ -116,52 +123,40 @@ def _lora_delta(lora: dict, which: str, x: torch.Tensor,
     return torch.bmm(torch.bmm(x, a), b_)
 
 
-def _add_deltas(cfg: ModelConfig, q, v, dq, dv, positions):
-    """q + rope(dq), v + dv.  RoPE is linear, so the q-delta gets it on
-    its own; the v-delta takes none."""
-    sin, cos = layers.rope_freqs(positions, cfg.head_dim, cfg.rope_theta)
-    return q + layers.apply_rope(dq, sin, cos), v + dv
-
-
-def _qkv_lora(p_attn: dict, cfg: ModelConfig, x: torch.Tensor,
-              positions: torch.Tensor, lora: Optional[dict],
-              adapter_ids: Optional[torch.Tensor]):
-    q, k, v = layers.attn_qkv(p_attn, cfg, x, positions)
+def _lora_deltas(cfg: ModelConfig, lora: Optional[dict], x: torch.Tensor,
+                 groups: List[Tuple[torch.Tensor, int, int]]):
+    """The q and v deltas of a token batch ``x`` (..., d), shaped as q
+    and v (None, None without a bank).  ``x`` is made of chunk-shaped
+    *groups*: ``groups`` lists ``(adapter_ids, n_chunks, chunk_width)``
+    covering its rows in order (the mixed step's B decode rows are B
+    chunks of width 1).  The adapter pair is gathered once per chunk,
+    not per token: all rows of a chunk share one request's adapter."""
     if lora is None:
-        return q, k, v
-    b, s = x.shape[:2]
-    dq = _lora_delta(lora, "q", x, adapter_ids).reshape(
-        b, s, cfg.n_heads, cfg.head_dim)
-    dv = _lora_delta(lora, "v", x, adapter_ids).reshape(
-        b, s, cfg.n_kv_heads, cfg.head_dim)
-    q, v = _add_deltas(cfg, q, v, dq, dv, positions)
-    return q, k, v
-
-
-def _qkv_lora_groups(p_attn: dict, cfg: ModelConfig, x: torch.Tensor,
-                     positions: torch.Tensor, lora: Optional[dict],
-                     groups: List[Tuple[torch.Tensor, int, int]]):
-    """Like ``_qkv_lora`` for a flattened (1, T, d) token batch made of
-    chunk-shaped *groups*: ``groups`` lists ``(adapter_ids, n_chunks,
-    chunk_width)`` covering the token dim in order (the mixed step's B
-    decode rows are B chunks of width 1).  The adapter pair is gathered
-    once per chunk, not per token: all rows of a chunk share one
-    request's adapter."""
-    q, k, v = layers.attn_qkv(p_attn, cfg, x, positions)
-    if lora is None:
-        return q, k, v
+        return None, None
     d_model = x.shape[-1]
+    flat = x.reshape(-1, d_model)
 
     def delta(which: str, heads: int) -> torch.Tensor:
         parts, off = [], 0
         for aids, n, s in groups:
-            seg = x[0, off:off + n * s].reshape(n, s, d_model)
+            seg = flat[off:off + n * s].reshape(n, s, d_model)
             parts.append(_lora_delta(lora, which, seg, aids).reshape(
                 n * s, heads, cfg.head_dim))
             off += n * s
-        return torch.cat(parts)[None]
-    q, v = _add_deltas(cfg, q, v, delta("q", cfg.n_heads),
-                       delta("v", cfg.n_kv_heads), positions)
+        return torch.cat(parts).reshape(x.shape[:-1] + (heads, cfg.head_dim))
+    return delta("q", cfg.n_heads), delta("v", cfg.n_kv_heads)
+
+
+def _qkv(p_attn: dict, cfg: ModelConfig, x: torch.Tensor):
+    """(q, k, v) of x (..., d) before RoPE: ``layers.attn_q``'s and
+    ``attn_kv``'s projections, bias, then ``qk_norm``.  The rope comes
+    with the K/V write (``kops.rope_write_kv``)."""
+    q, k, v = (layers._proj(x, p_attn[w]) for w in ("wq", "wk", "wv"))
+    if cfg.qkv_bias:
+        q, k, v = q + p_attn["bq"], k + p_attn["bk"], v + p_attn["bv"]
+    if cfg.qk_norm:
+        q = layers.rms_norm(q, p_attn["q_norm"], cfg.norm_eps)
+        k = layers.rms_norm(k, p_attn["k_norm"], cfg.norm_eps)
     return q, k, v
 
 
@@ -173,24 +168,56 @@ def _layer_params(params, cfg: ModelConfig) -> List[dict]:
     return [M.layer_view(params["run_0"], i) for i in range(cfg.n_layers)]
 
 
-def _ffn(p_l: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """The FFN sublayer over the whole token batch ``x``, padding rows
-    included: the MoE capacity is the reference's for that batch.  The
-    MoE auxiliary losses are not computed: the reference's steps drop
-    them."""
-    h2 = layers.rms_norm(x, p_l["ln2"], cfg.norm_eps)
+def _ffn(p_l: dict, cfg: ModelConfig, h: torch.Tensor,
+         impl: str) -> torch.Tensor:
+    """The FFN sublayer's output for the normed token batch ``h``,
+    padding rows included: the MoE capacity is the reference's for that
+    batch.  The MoE auxiliary losses are not computed: the reference's
+    steps drop them."""
     if "moe" in p_l:
-        f, _, _ = moe.moe_ffn(p_l["moe"], cfg.moe, h2, cfg.act)
-        return x + f
-    return x + layers.mlp(p_l["mlp"], h2, cfg.act)
+        return moe.moe_ffn(p_l["moe"], cfg.moe, h, cfg.act)[0]
+    p = p_l["mlp"]
+    return kops.gated_act(h @ p["w_gate"], h @ p["w_in"], cfg.act,
+                          impl=impl) @ p["w_out"]
 
 
-def _write_kv(pool: PagePool, layer: int, pidx: torch.Tensor,
-              slot: torch.Tensor, rows: torch.Tensor, k: torch.Tensor,
-              v: torch.Tensor) -> None:
-    """pool[layer, pidx[i], slot[i]] = k/v[rows[i]] for the valid rows."""
-    pool.k[layer][pidx, slot] = k[rows].to(pool.k.dtype)
-    pool.v[layer][pidx, slot] = v[rows].to(pool.v.dtype)
+def _write_kv(pool: PagePool, layer: int, kv: Tuple[torch.Tensor, ...],
+              q, k, v, sin, cos, dq, dv, impl: str) -> None:
+    """Layer ``layer``'s K/V of the rows ``kv`` = (rows, pages, slots)
+    into the pool, k roped, and q roped in place (with the LoRA deltas
+    dq, dv where given): one kernel, no write for any other row.  Kept
+    as a function of its own: the benchmark's fault test
+    (``servebench/test_servebench_faults.py``) replaces it by name."""
+    kops.rope_write_kv(q, k, v, sin, cos, pool.k[layer], pool.v[layer], *kv,
+                       dq=dq, dv=dv, impl=impl)
+
+
+def _layers(params, cfg: ModelConfig, pool: PagePool, x: torch.Tensor,
+            positions: torch.Tensor, kv: Tuple[torch.Tensor, ...],
+            lora: Optional[dict], groups, attend, impl: str
+            ) -> torch.Tensor:
+    """Every layer over the token batch ``x`` (..., d) at ``positions``
+    (its leading dims), writing each layer's K/V of the rows ``kv`` =
+    (rows, pages, slots) into the pool in place (``_write_kv``).
+    ``attend(i, q)`` is layer i's attention over the pages.  Between the
+    GEMMs each gap is one kernel: a residual add with the norm after it,
+    RoPE with the K/V write, the gated activation.  Returns the final
+    norm of the last layer's output."""
+    sin, cos = layers.rope_freqs(positions, cfg.head_dim, cfg.rope_theta)
+    p_layers = _layer_params(params, cfg)
+    norms = [p_l["ln1"] for p_l in p_layers[1:]] + [params["final_norm"]]
+    eps = cfg.norm_eps
+    x, h = kops.add_rms_norm(x, None, p_layers[0]["ln1"], eps, impl=impl)
+    for i, p_l in enumerate(p_layers):
+        q, k, v = _qkv(p_l["attn"], cfg, h)
+        dq, dv = _lora_deltas(cfg, lora, h, groups)
+        _write_kv(pool, i, kv, q, k, v, sin, cos, dq, dv, impl)
+        x, h = kops.add_rms_norm(x, layers.attn_out(p_l["attn"],
+                                                    attend(i, q)),
+                                 p_l["ln2"], eps, impl=impl)
+        x, h = kops.add_rms_norm(x, _ffn(p_l, cfg, h, impl), norms[i], eps,
+                                 impl=impl)
+    return h
 
 
 def _chunk_rows(tokens: torch.Tensor, ctx: torch.Tensor, lens: torch.Tensor,
@@ -238,15 +265,11 @@ def prefill_step(params, pool: PagePool, tokens: torch.Tensor,
     pidx = block_table[0, tok_pos[:chunk_len] // page_size].long()
     slot = tok_pos[:chunk_len] % page_size
 
-    for i, p_l in enumerate(_layer_params(params, cfg)):
-        h = layers.rms_norm(x, p_l["ln1"], cfg.norm_eps)
-        q, k, v = _qkv_lora(p_l["attn"], cfg, h, positions, lora,
-                            adapter_ids)
-        _write_kv(pool, i, pidx, slot, rows, k[0], v[0])
-        o = kops.paged_prefill(q, pool.k[i], pool.v[i], block_table, ctx1,
-                               chunk1, impl=impl)
-        x = _ffn(p_l, cfg, x + layers.attn_out(p_l["attn"], o))
-    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    def attend(i, q):
+        return kops.paged_prefill(q, pool.k[i], pool.v[i], block_table, ctx1,
+                                  chunk1, impl=impl)
+    x = _layers(params, cfg, pool, x, positions, (rows, pidx, slot), lora,
+                [(adapter_ids, 1, s)], attend, impl)
     last = x[:, max(chunk_len - 1, 0)][:, None]
     return M.unembed(params, cfg, last)[:, 0], pool
 
@@ -277,15 +300,11 @@ def decode_batch(params, pool: PagePool, tokens: torch.Tensor,
     pidx = block_tables[rows, pos_a // page_size].long()
     slot = pos_a % page_size
 
-    for i, p_l in enumerate(_layer_params(params, cfg)):
-        h = layers.rms_norm(x, p_l["ln1"], cfg.norm_eps)
-        q, k, v = _qkv_lora(p_l["attn"], cfg, h, positions[:, None], lora,
-                            adapter_ids)
-        _write_kv(pool, i, pidx, slot, rows, k[:, 0], v[:, 0])
-        o = kops.paged_attention(q[:, 0], pool.k[i], pool.v[i],
-                                 block_tables, lengths, impl=impl)
-        x = _ffn(p_l, cfg, x + layers.attn_out(p_l["attn"], o[:, None]))
-    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    def attend(i, q):
+        return kops.paged_attention(q[:, 0], pool.k[i], pool.v[i],
+                                    block_tables, lengths, impl=impl)[:, None]
+    x = _layers(params, cfg, pool, x, positions[:, None], (rows, pidx, slot),
+                lora, [(adapter_ids, tokens.shape[0], 1)], attend, impl)
     return M.unembed(params, cfg, x)[:, 0], pool
 
 
@@ -334,22 +353,20 @@ def mixed_step(params, pool: PagePool,
     dec_lengths = torch.where(dec_active, dec_positions + 1, 0).to(
         torch.int32)
 
-    for i, p_l in enumerate(_layer_params(params, cfg)):
-        h = layers.rms_norm(x, p_l["ln1"], cfg.norm_eps)
-        q, k, v = _qkv_lora_groups(p_l["attn"], cfg, h,
-                                   positions_flat[None], lora,
-                                   [(dec_adapter_ids, b, 1),
-                                    (pre_adapter_ids, kk, s)])
-        _write_kv(pool, i, pidx, slot, rows, k[0], v[0])
-        o_dec = kops.paged_attention(q[0, :b], pool.k[i], pool.v[i],
-                                     dec_block_tables, dec_lengths,
-                                     impl=impl)                 # (B, H, D)
-        o_pre = kops.paged_prefill(q[0, b:].reshape(kk, s, h_, hd),
-                                   pool.k[i], pool.v[i], pre_block_tables,
-                                   pre_ctx, pre_chunk, impl=impl)
-        o = torch.cat([o_dec, o_pre.reshape(kk * s, h_, hd)])[None]
-        x = _ffn(p_l, cfg, x + layers.attn_out(p_l["attn"], o))
-    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    def attend(i, q):
+        # both kernels write into views of one (T, H, D) output
+        o = torch.empty_like(q[0])
+        kops.paged_attention(q[0, :b], pool.k[i], pool.v[i],
+                             dec_block_tables, dec_lengths, out=o[:b],
+                             impl=impl)
+        kops.paged_prefill(q[0, b:].reshape(kk, s, h_, hd), pool.k[i],
+                           pool.v[i], pre_block_tables, pre_ctx, pre_chunk,
+                           out=o[b:].view(kk, s, h_, hd), impl=impl)
+        return o[None]
+    x = _layers(params, cfg, pool, x, positions_flat[None],
+                (rows, pidx, slot), lora,
+                [(dec_adapter_ids, b, 1), (pre_adapter_ids, kk, s)], attend,
+                impl)
     # only unembed the rows that produce tokens: every decode row plus
     # each chunk's last valid row
     sel = torch.cat([torch.arange(b, device=dev),
@@ -391,17 +408,12 @@ def spec_decode_step(params, pool: PagePool, spec_tokens: torch.Tensor,
     x = M.embed(params, cfg, spec_tokens.reshape(1, -1))   # (1, B*SD, d)
     h_, hd = cfg.n_heads, cfg.head_dim
 
-    for i, p_l in enumerate(_layer_params(params, cfg)):
-        h = layers.rms_norm(x, p_l["ln1"], cfg.norm_eps)
-        q, k, v = _qkv_lora_groups(p_l["attn"], cfg, h, positions_flat,
-                                   lora, [(adapter_ids, b, sd)])
-        _write_kv(pool, i, pidx, slot, rows, k[0], v[0])
-        o = kops.paged_verify(q[0].reshape(b, sd, h_, hd), pool.k[i],
-                              pool.v[i], spec_block_tables, spec_ctx,
-                              spec_len, impl=impl)
-        x = _ffn(p_l, cfg, x + layers.attn_out(
-            p_l["attn"], o.reshape(1, b * sd, h_, hd)))
-    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    def attend(i, q):
+        return kops.paged_verify(q[0].reshape(b, sd, h_, hd), pool.k[i],
+                                 pool.v[i], spec_block_tables, spec_ctx,
+                                 spec_len, impl=impl).reshape(q.shape)
+    x = _layers(params, cfg, pool, x, positions_flat, (rows, pidx, slot),
+                lora, [(adapter_ids, b, sd)], attend, impl)
     logits = M.unembed(params, cfg, x)[0]                   # (B*SD, V)
     return logits.reshape(b, sd, -1), pool
 
@@ -439,22 +451,21 @@ def spec_mixed_step(params, pool: PagePool, spec_tokens: torch.Tensor,
                                 pre_pos.reshape(-1)])[None]
     x = M.embed(params, cfg, tokens_flat[None])             # (1, T, d)
 
-    for i, p_l in enumerate(_layer_params(params, cfg)):
-        h = layers.rms_norm(x, p_l["ln1"], cfg.norm_eps)
-        q, k, v = _qkv_lora_groups(p_l["attn"], cfg, h, positions_flat,
-                                   lora, [(spec_adapter_ids, b, sd),
-                                          (pre_adapter_ids, kk, s)])
-        _write_kv(pool, i, pidx, slot, rows, k[0], v[0])
-        o_spec = kops.paged_verify(q[0, :b * sd].reshape(b, sd, h_, hd),
-                                   pool.k[i], pool.v[i], spec_block_tables,
-                                   spec_ctx, spec_len, impl=impl)
-        o_pre = kops.paged_prefill(q[0, b * sd:].reshape(kk, s, h_, hd),
-                                   pool.k[i], pool.v[i], pre_block_tables,
-                                   pre_ctx, pre_chunk, impl=impl)
-        o = torch.cat([o_spec.reshape(b * sd, h_, hd),
-                       o_pre.reshape(kk * s, h_, hd)])[None]
-        x = _ffn(p_l, cfg, x + layers.attn_out(p_l["attn"], o))
-    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    n = b * sd
+
+    def attend(i, q):
+        # both kernels write into views of one (T, H, D) output
+        o = torch.empty_like(q[0])
+        kops.paged_verify(q[0, :n].reshape(b, sd, h_, hd), pool.k[i],
+                          pool.v[i], spec_block_tables, spec_ctx, spec_len,
+                          out=o[:n].view(b, sd, h_, hd), impl=impl)
+        kops.paged_prefill(q[0, n:].reshape(kk, s, h_, hd), pool.k[i],
+                           pool.v[i], pre_block_tables, pre_ctx, pre_chunk,
+                           out=o[n:].view(kk, s, h_, hd), impl=impl)
+        return o[None]
+    x = _layers(params, cfg, pool, x, positions_flat, (rows, pidx, slot),
+                lora, [(spec_adapter_ids, b, sd), (pre_adapter_ids, kk, s)],
+                attend, impl)
     # every spec row + each prefill chunk's last valid row
     sel = torch.cat([torch.arange(b * sd, device=dev),
                      b * sd + torch.arange(kk, device=dev) * s

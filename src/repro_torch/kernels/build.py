@@ -22,7 +22,8 @@ from typing import Dict, Iterable
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
-KERNELS = ("paged_attention", "paged_prefill", "flash_prefill")
+KERNELS = ("paged_attention", "paged_prefill", "flash_prefill",
+           "fused_elementwise")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

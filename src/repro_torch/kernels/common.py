@@ -102,6 +102,24 @@ def check_index(t: torch.Tensor, shape: tuple, name: str) -> None:
                          f"shape {shape}, got {t.dtype} {tuple(t.shape)}")
 
 
+def output_like(q: torch.Tensor, out=None) -> torch.Tensor:
+    """A new tensor like q, or ``out`` where the caller gives one to
+    write into: q's shape and dtype, contiguous, on q's device."""
+    if out is None:
+        return torch.empty_like(q)
+    if out.shape != q.shape or out.dtype != q.dtype \
+            or out.device != q.device or not out.is_contiguous():
+        raise ValueError(f"out must be a contiguous {q.dtype} tensor of "
+                         f"shape {tuple(q.shape)} on {q.device}, got "
+                         f"{out.dtype} {tuple(out.shape)} on {out.device}")
+    return out
+
+
+def into(out, result: torch.Tensor) -> torch.Tensor:
+    """``result``, copied into ``out`` where one is given."""
+    return result if out is None else output_like(result, out).copy_(result)
+
+
 def dtype_code(t: torch.Tensor) -> int:
     return DTYPE_CODES[t.dtype]
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -80,13 +81,15 @@ def _ticket_counters(device: torch.device, n: int) -> torch.Tensor:
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, block_tables: torch.Tensor,
-                    lengths: torch.Tensor) -> torch.Tensor:
+                    lengths: torch.Tensor,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q: (B, H, D); k_pages/v_pages: (P, page, Hkv, D); block_tables:
-    (B, NB) int32; lengths: (B,) int32 -> (B, H, D)."""
+    (B, NB) int32; lengths: (B,) int32 -> (B, H, D), written into
+    ``out`` where one is given."""
     common.refuse_autograd("paged_attention", q, k_pages, v_pages)
     if common.on_cpu(q, k_pages, v_pages, block_tables, lengths):
-        return paged_attention_ref(q, k_pages, v_pages, block_tables,
-                                   lengths)
+        return common.into(out, paged_attention_ref(
+            q, k_pages, v_pages, block_tables, lengths))
     b, h, d = q.shape
     _, page, hkv, _ = k_pages.shape
     nb = block_tables.shape[1]
@@ -98,7 +101,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f"paged_attention kernel takes H / Hkv <= "
                          f"{MAX_GROUP} and head_dim <= {MAX_HEAD_DIM}, got "
                          f"{g} and {d}")
-    out = torch.empty_like(q)
+    out = common.output_like(q, out)
     if b == 0:                  # nothing to launch, nothing to count
         return out
     pps, n_splits = split_plan(b, hkv, nb, page, _num_sms(q.device.index))

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -33,16 +34,18 @@ def _fn():
 def paged_prefill(q: torch.Tensor, k_pages: torch.Tensor,
                   v_pages: torch.Tensor, block_tables: torch.Tensor,
                   ctx_lens: torch.Tensor,
-                  chunk_lens: torch.Tensor) -> torch.Tensor:
+                  chunk_lens: torch.Tensor,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q: (B, S, H, D) chunk queries; k_pages/v_pages: (P, page, Hkv,
     D), already holding the chunk's K/V; block_tables: (B, NB) int32;
     ctx_lens/chunk_lens: (B,) int32.  Returns (B, S, H, D) with rows
-    ``>= chunk_lens[b]`` zeroed."""
+    ``>= chunk_lens[b]`` zeroed, written into ``out`` where one is
+    given."""
     common.refuse_autograd("paged_prefill", q, k_pages, v_pages)
     if common.on_cpu(q, k_pages, v_pages, block_tables, ctx_lens,
                      chunk_lens):
-        return paged_prefill_ref(q, k_pages, v_pages, block_tables,
-                                 ctx_lens, chunk_lens)
+        return common.into(out, paged_prefill_ref(
+            q, k_pages, v_pages, block_tables, ctx_lens, chunk_lens))
     b, s, h, d = q.shape
     _, page, hkv, _ = k_pages.shape
     nb = block_tables.shape[1]
@@ -51,7 +54,7 @@ def paged_prefill(q: torch.Tensor, k_pages: torch.Tensor,
     common.check_index(block_tables, (b, nb), "block_tables")
     common.check_index(ctx_lens, (b,), "ctx_lens")
     common.check_index(chunk_lens, (b,), "chunk_lens")
-    out = torch.empty_like(q)
+    out = common.output_like(q, out)
     if b == 0 or s == 0:        # nothing to launch, nothing to count
         return out
     err = _fn()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),

@@ -1,14 +1,20 @@
-"""Plain PyTorch versions of the port's attention kernels.
+"""Plain PyTorch versions of the port's kernels.
 
-They compute, with dense gathers and a full softmax in float32, what
-the CUDA kernels compute with tiled, online-softmax loops.  The CPU
-tests hold them against the JAX package, the kernel wrappers take them
-for CPU tensors, and ``chip_smoke.py`` holds each kernel against them
-on the card.  Shapes as in ``repro/kernels/ref.py``.
+The attention references compute, with dense gathers and a full
+softmax in float32, what the CUDA kernels compute with tiled,
+online-softmax loops; shapes as in ``repro/kernels/ref.py``.  The
+elementwise references are the chains of ``models.layers`` ops
+(``rms_norm``, ``apply_rope``, ``activation``) that the fused kernels
+replace, op for op.  The CPU tests hold them against the JAX package
+and ``models.layers``, the kernel wrappers take them for CPU tensors,
+and ``chip_smoke.py`` holds each kernel against them on the card.
 """
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -0.7 * torch.finfo(torch.float32).max
 
@@ -143,3 +149,57 @@ def flash_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = probs * mask.any(-1)[:, None, None, :, None]
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
     return out.reshape(b, sq, h, d).to(q.dtype)
+
+
+# ------------------------------------------------------------ elementwise
+def _rms_norm(x: torch.Tensor, scale: torch.Tensor,
+              eps: float) -> torch.Tensor:
+    """``layers.rms_norm`` of whole rows: float32, scaled by 1 + scale."""
+    dtype = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(dtype)
+
+
+def _rope(x: torch.Tensor, sin: torch.Tensor,
+          cos: torch.Tensor) -> torch.Tensor:
+    """``layers.apply_rope``: split halves rotated in float32; x: (..., S,
+    H, D), sin/cos: (..., S, D // 2)."""
+    dtype = x.dtype
+    x1, x2 = x.float().chunk(2, dim=-1)
+    sin, cos = sin[..., None, :], cos[..., None, :]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     dim=-1).to(dtype)
+
+
+def add_rms_norm_ref(x: torch.Tensor, delta: Optional[torch.Tensor],
+                     scale: torch.Tensor, eps: float
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x + delta, rms_norm(x + delta)); without delta, (x, rms_norm(x))."""
+    if delta is not None:
+        x = x + delta
+    return x, _rms_norm(x, scale, eps)
+
+
+def rope_write_kv_ref(q, k, v, sin, cos, k_pages, v_pages, rows, pidx,
+                      slot, dq=None, dv=None) -> torch.Tensor:
+    """RoPE of q and k, q + rope(dq) and v + dv where deltas are given,
+    then ``pages[pidx[i], slot[i]] = k/v[rows[i]]``.  Returns q, roped in
+    place."""
+    roped = _rope(q, sin, cos)
+    k = _rope(k, sin, cos)
+    if dq is not None:
+        roped = roped + _rope(dq, sin, cos)
+    if dv is not None:
+        v = v + dv
+    hkv, d = k.shape[-2:]
+    k_pages[pidx, slot] = k.reshape(-1, hkv, d)[rows].to(k_pages.dtype)
+    v_pages[pidx, slot] = v.reshape(-1, hkv, d)[rows].to(v_pages.dtype)
+    return q.copy_(roped)
+
+
+def gated_act_ref(gate: torch.Tensor, up: torch.Tensor,
+                  act: str) -> torch.Tensor:
+    """act(gate) * up: silu, or gelu with the tanh approximation."""
+    g = F.silu(gate) if act == "silu" else F.gelu(gate, approximate="tanh")
+    return g * up

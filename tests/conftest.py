@@ -4,3 +4,8 @@ import os
 # dryrun.py-only); cap compilation parallelism for container stability.
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 os.environ.setdefault("XLA_FLAGS", "--xla_cpu_multi_thread_eigen=false")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "chip: needs a CUDA card; skips without one")

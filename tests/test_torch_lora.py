@@ -1,7 +1,7 @@
 """Multi-LoRA serving in the port against the JAX package.
 
-The LoRA math (``_lora_delta``, the mixed step's grouped delta against
-JAX's ``_qkv_lora_mixed``) and the three paged
+The LoRA math (``_lora_delta``, the mixed step's grouped deltas and
+RoPE against JAX's ``_qkv_lora_mixed``) and the three paged
 step functions with an adapter bank are compared with the JAX functions
 on the same weights at 1e-5 in float32.  The engine serves base and
 adapter requests token-identically to ``repro.engine.InferenceEngine``,
@@ -34,6 +34,8 @@ from repro_torch.configs import get_reduced_config  # noqa: E402
 from repro_torch.engine import (EngineConfig, InferenceEngine,  # noqa: E402
                                 Request, RequestState, SamplingParams)
 from repro_torch.engine import paged_model as PM  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
+from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -78,6 +80,22 @@ def _bank(cfg, rng):
 
 
 # ---------------------------------------------------------------- math
+def _qkv_lora_mixed(attn, cfg, x, pos, bank, groups):
+    """Roped (q, k, v) of a flattened (1, T, d) batch as the paged steps
+    make them: the projections, the grouped deltas, then RoPE with every
+    row's K/V written into a pool of one slot a row, read back."""
+    q, k, v = PM._qkv(attn, cfg, x)
+    dq, dv = PM._lora_deltas(cfg, bank, x, groups)
+    sin, cos = layers.rope_freqs(pos, cfg.head_dim, cfg.rope_theta)
+    t = x.shape[1]
+    k_pages = torch.zeros((t, 1, cfg.n_kv_heads, cfg.head_dim))
+    v_pages = torch.zeros_like(k_pages)
+    rows = torch.arange(t)
+    q = kops.rope_write_kv(q, k, v, sin, cos, k_pages, v_pages, rows, rows,
+                           torch.zeros_like(rows), dq=dq, dv=dv)
+    return q, k_pages[:, 0][None], v_pages[:, 0][None]
+
+
 def test_lora_delta_and_qkv_mixed_match_jax(setup):
     s = setup
     rng = np.random.default_rng(20)
@@ -107,12 +125,12 @@ def test_lora_delta_and_qkv_mixed_match_jax(setup):
     # chunks of width one
     groups = [(torch.from_numpy(dec_ids), n_dec, 1),
               (torch.from_numpy(pre_ids), n_pre, width)]
-    got = PM._qkv_lora_groups(attn, s.cfg, torch.from_numpy(xf),
-                              torch.from_numpy(pos), bank, groups)
+    got = _qkv_lora_mixed(attn, s.cfg, torch.from_numpy(xf),
+                          torch.from_numpy(pos), bank, groups)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
-    base = PM._qkv_lora_groups(attn, s.cfg, torch.from_numpy(xf),
-                               torch.from_numpy(pos), None, groups)
+    base = _qkv_lora_mixed(attn, s.cfg, torch.from_numpy(xf),
+                           torch.from_numpy(pos), None, groups)
     # rows of slot 0 are exactly the base projections, the others differ
     base_rows = [1] + list(range(n_dec + width, n_dec + 2 * width))
     for g, b_ in ((got[0], base[0]), (got[2], base[2])):

@@ -34,6 +34,7 @@ from repro_torch.engine import (EngineConfig, InferenceEngine,  # noqa: E402
 from repro_torch.engine import paged_model as PM  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from test_torch_lora import _qkv_lora_mixed  # noqa: E402
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 ECFG = dict(page_size=8, num_pages=64, max_batch=4, max_pages_per_seq=16,
@@ -81,10 +82,9 @@ def test_qkv_lora_groups_matches_jax(setup):
                                 jnp.asarray(pos), jbank,
                                 [(jnp.asarray(a), b, c)
                                  for a, b, c in groups])
-    got = PM._qkv_lora_groups(attn, s.cfg, torch.from_numpy(x),
-                              torch.from_numpy(pos), bank,
-                              [(torch.from_numpy(a), b, c)
-                               for a, b, c in groups])
+    got = _qkv_lora_mixed(attn, s.cfg, torch.from_numpy(x),
+                          torch.from_numpy(pos), bank,
+                          [(torch.from_numpy(a), b, c) for a, b, c in groups])
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
     base = layers.attn_qkv(attn, s.cfg, torch.from_numpy(x),
