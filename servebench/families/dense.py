@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from servebench import reference
+from servebench.roofline import StepRecord, chunk_pairs
 
 
 def leaves(cfg: dict) -> List[Tuple[str, Tuple[int, ...], float]]:
@@ -79,9 +80,13 @@ def token_flops(cfg: dict) -> int:
     return 2 * per_layer * cfg["num_hidden_layers"]
 
 
-def attention_flops(cfg: dict, keys: int) -> int:
-    """Operations of query rows over ``keys`` (query, key) pairs in every
-    layer (scores and the weighted sum of values)."""
+def attention_flops(cfg: dict, step: StepRecord) -> int:
+    """Operations of a step's query rows over their live (query, key)
+    pairs in every layer (scores and the weighted sum of values): a
+    decode row over its whole context, a chunk causally over its cached
+    tokens and itself."""
+    keys = sum(step.dec_lens) + sum(chunk_pairs(s, c)
+                                    for s, c, _ in step.chunks)
     return (4 * keys * cfg["num_attention_heads"] * cfg["head_dim"]
             * cfg["num_hidden_layers"])
 

@@ -3,8 +3,8 @@ in the traced sub-window, in %.  The least time of each launch is the
 larger of its operations at the bf16 peak and its bytes at the HBM
 bandwidth, from the executed schedules' live (query, key) pairs
 (``servebench/roofline.py``).  A traced step that holds another
-number of launches than one a layer is left out
-(``servebench/kernel_share.py``)."""
+number of launches than the declared one (one a layer, unless the
+family declares otherwise) is left out (``servebench/kernel_share.py``)."""
 from servebench.kernel_share import roofline_pct
 
 

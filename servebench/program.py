@@ -8,19 +8,53 @@ shapes, and tells finished and failed requests apart.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import List
 
 from repro_torch.engine import (EngineConfig, InferenceEngine, Request,
                                 RequestState, SamplingParams)
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import (MLAConfig, ModelConfig, MoEConfig,
+                                       SSMConfig, XLSTMConfig)
 
 from servebench.families import family
+
+# the port's sub-configurations, by the ``ModelConfig`` field that holds each
+SUB_CONFIGS = {"moe": MoEConfig, "mla": MLAConfig, "ssm": SSMConfig,
+               "xlstm": XLSTMConfig}
+
+
+def _dataclass(kind, kw: dict, where: str):
+    """``kind(**kw)``, with a ``ValueError`` naming any key ``kind``
+    lacks."""
+    fields = {f.name for f in dataclasses.fields(kind)}
+    unknown = sorted(set(kw) - fields)
+    if unknown:
+        raise ValueError(f"{where}: the port's {kind.__name__} has no "
+                         f"{', '.join(map(repr, unknown))}")
+    return kind(**kw)
 
 
 def model_config(cfg: dict) -> ModelConfig:
     """The port's configuration of a configuration file's model, as its
-    family maps it."""
-    return ModelConfig(**family(cfg).port_config(cfg))
+    family maps it.  The family hands plain data: a nested dict under
+    ``moe``, ``mla``, ``ssm`` or ``xlstm`` becomes that sub-configuration
+    and a ``layer_pattern`` list a tuple; any other nested dict, or a key
+    that the port's dataclass lacks, raises a ``ValueError`` naming it."""
+    kw = dict(family(cfg).port_config(cfg))
+    where = f"{cfg['name']} ({cfg['family']})"
+    for key, value in kw.items():
+        if not isinstance(value, dict):
+            continue
+        if key not in SUB_CONFIGS:
+            raise ValueError(f"{where}: {key!r} is not a sub-configuration "
+                             f"of the port ({', '.join(SUB_CONFIGS)})")
+        nested = sorted(k for k, v in value.items() if isinstance(v, dict))
+        if nested:
+            raise ValueError(f"{where}: {key}.{nested[0]} is a nested dict")
+        kw[key] = _dataclass(SUB_CONFIGS[key], value, f"{where} {key}")
+    if isinstance(kw.get("layer_pattern"), list):
+        kw["layer_pattern"] = tuple(kw["layer_pattern"])
+    return _dataclass(ModelConfig, kw, where)
 
 
 def engine_config(cfg: dict) -> EngineConfig:

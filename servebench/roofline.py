@@ -11,8 +11,8 @@ from shapes alone:
 - ``forward_flops``: the forward operations of a step's real tokens:
   every real token through the layers outside attention, attention over
   each token's live context (both as the configuration's family counts
-  them, ``servebench/families/``), and the head of each row that emits
-  a token.
+  them, ``servebench/families/``, the attention from the step's decode
+  rows and chunks), and the head of each row that emits a token.
 - ``paged_attention_cost`` and ``paged_prefill_cost``: operations and
   bytes of one launch of each kernel (one layer), counting each input
   byte read once and each output byte written once: live keys and
@@ -61,11 +61,9 @@ def chunk_pairs(start: int, length: int) -> int:
 def forward_flops(cfg: dict, step: StepRecord) -> int:
     """Forward operations of the real tokens of one step."""
     fam = family(cfg)
-    keys = sum(step.dec_lens) + sum(chunk_pairs(s, c)
-                                    for s, c, _ in step.chunks)
     head = 2 * cfg["hidden_size"] * cfg["vocab_size"]
     return (step.real_tokens * fam.token_flops(cfg)
-            + fam.attention_flops(cfg, keys) + step.emitting_rows * head)
+            + fam.attention_flops(cfg, step) + step.emitting_rows * head)
 
 
 def _table_bytes(tokens: int, page: int) -> int:

@@ -133,10 +133,10 @@ def run(cfg: dict, mix: dict, chk: dict, entries: list, seed: int,
               f"{w.trace.window_s:.3f} s, busy {w.trace.busy_s:.3f} s, "
               f"{w.trace.aligned_share} of them inside a step span",
               file=log)
-        for name in kernel_share.KERNELS:
+        for name, k in kernel_share.kernels(cfg).items():
             got = [len(x) for _, x in kernel_share.step_launches(w, name)]
             print(f"trace: {name} launches a step {got}, "
-                  f"{cfg['num_hidden_layers']} layers", file=log)
+                  f"{k.launches(cfg)} declared", file=log)
     del engine
     gc.collect()
     if on_card:
